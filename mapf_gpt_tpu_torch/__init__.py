@@ -1,0 +1,16 @@
+"""mapf_gpt_tpu_torch — the PyTorch/CUDA port of ``mapf_gpt_tpu``.
+
+The batched one-shot MAPF rollout on an NVIDIA H100:
+reset (``envs/env.py``, dense cost2go fields from ``ops/cost2go.py``) ->
+tokenize (``ops/obs.py``) -> policy forward (``models/gpt.py``; on CUDA the
+hand-written kernel in ``csrc/fused_gpt.cu`` through ``ops/fused_gpt.py``) ->
+act -> step (``envs/dynamics.py``) -> episode metrics (``envs/metrics.py``),
+driven by ``parallel/rollout.py``.
+
+The package imports torch and numpy only: nothing of JAX and nothing of
+``mapf_gpt_tpu``, of which it keeps its own copies (``ops/vocab.py``,
+``maps.py``).  Entry points take an explicit ``device`` that defaults to
+``"cuda"``; CPU tensors take the plain PyTorch versions of the kernels.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,67 @@
+"""Weights carried across: JAX params or reference ``.pt`` -> the port's GPT.
+
+- :func:`params_to_state_dict` takes the JAX package's flax params (a nested
+  dict of numpy arrays, with or without the top ``"params"`` level) and
+  returns the port's state dict in the reference key layout (the inverse of
+  ``mapf_gpt_tpu/models/convert.py::torch_state_dict_to_params``).
+- :func:`load_reference_checkpoint` reads a reference-layout ``.pt``
+  (``{"model": state_dict, "model_args": {...}, ...}``) with torch alone.
+- :func:`load_model` builds the :class:`GPT` from either on a device.
+
+Torch ``nn.Linear`` stores [out, in]; flax Dense kernels are [in, out],
+hence the transposes.  A ``_orig_mod.`` prefix from torch.compile
+checkpoints is stripped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mapf_gpt_tpu_torch.models.gpt import GPT, GPTConfig
+
+
+def strip_prefix(state_dict: dict, prefix: str = "_orig_mod.") -> dict:
+    return {k[len(prefix):] if k.startswith(prefix) else k: v
+            for k, v in state_dict.items()}
+
+
+def params_to_state_dict(params: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
+    """Flax params (nested dict of numpy arrays) -> reference-layout state dict."""
+    p = params["params"] if "params" in params else params
+    t32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    sd = {
+        "transformer.wte.weight": t32(p["wte"]),
+        "transformer.wpe.weight": t32(p["wpe"]),
+        "transformer.ln_f.weight": t32(p["ln_f"]["scale"]),
+    }
+    for i in range(cfg.n_layer):
+        b, t = p[f"h_{i}"], f"transformer.h.{i}"
+        sd[f"{t}.ln_1.weight"] = t32(b["ln_1"]["scale"])
+        sd[f"{t}.ln_2.weight"] = t32(b["ln_2"]["scale"])
+        for mod, sub in (("attn", "c_attn"), ("attn", "c_proj"),
+                         ("mlp", "c_fc"), ("mlp", "c_proj")):
+            sd[f"{t}.{mod}.{sub}.weight"] = t32(np.asarray(b[mod][sub]["kernel"]).T)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def load_reference_checkpoint(path: str) -> tuple[GPTConfig, dict[str, torch.Tensor]]:
+    """Read a reference ``.pt`` -> (GPTConfig, fp32 state dict on the CPU)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    args = dict(ckpt["model_args"])
+    if args.get("bias", False):
+        raise ValueError(f"{path}: bias=True models are not supported")
+    cfg = GPTConfig(block_size=args.get("block_size", 256),
+                    vocab_size=args.get("vocab_size", 67),
+                    n_layer=args["n_layer"], n_head=args["n_head"],
+                    n_embd=args["n_embd"])
+    sd = {k: v.detach().float() for k, v in strip_prefix(ckpt["model"]).items()}
+    return cfg, sd
+
+
+def load_model(cfg: GPTConfig, state_dict: dict, device: str | torch.device = "cuda") -> GPT:
+    """A GPT with these weights on `device`, in eval mode."""
+    model = GPT(cfg)
+    model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval()

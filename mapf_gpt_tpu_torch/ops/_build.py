@@ -1,0 +1,76 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a plain shared
+library, loaded with ``ctypes``.
+
+Each source ``csrc/<name>.cu`` exports ``extern "C"`` functions and includes
+no PyTorch header, so a build takes seconds.  The library goes to
+``csrc/build/lib<name>-<hash>.so`` (listed in ``.gitignore``), keyed by a
+hash of the source and the flags: a second load in the same process, or in
+a later process on the same checkout, does not rebuild.  A missing ``nvcc``
+or a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+build_log: dict[str, str] = {}   # name -> the compiler's output of this process's build
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       f"{home}/bin); the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cu goes, keyed by source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this source exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]

@@ -1,0 +1,76 @@
+"""The kernel build (``ops/_build.py``) without a CUDA toolkit: nvcc is
+looked for and its absence raises; the library is keyed by a hash of the
+source, built once, and a failed build raises with the compiler's output.
+A stand-in ``nvcc`` script plays the compiler."""
+
+import os
+import stat
+
+import pytest
+
+from mapf_gpt_tpu_torch.ops import _build
+
+
+def _fake_nvcc(directory, body):
+    path = directory / "nvcc"
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return directory
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('extern "C" int k() { return 0; }\n')
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", src / "build")
+    return src
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_library_is_keyed_by_source(csrc):
+    first = _build.library_path("k")
+    assert first.parent == csrc / "build" and first.name.startswith("libk-")
+    assert _build.library_path("k") == first
+    (csrc / "k.cu").write_text('extern "C" int k() { return 1; }\n')
+    assert _build.library_path("k") != first
+
+
+def test_build_once_then_reuse(csrc, tmp_path, monkeypatch):
+    calls = tmp_path / "calls"
+    # the stand-in compiler writes the file named after -o and counts its runs
+    bindir = _fake_nvcc(tmp_path, f'echo run >> {calls}\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                                  'echo lib > "$2"\n')
+    monkeypatch.setenv("PATH", str(bindir))
+    out = _build.build("k")
+    assert out.exists() and out == _build.library_path("k")
+    assert _build.build("k") == out
+    assert calls.read_text().count("run") == 1
+    assert not [p for p in os.listdir(out.parent) if p.endswith(".tmp")]
+
+
+def test_failed_build_raises_with_compiler_output(csrc, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, 'echo "k.cu(1): error: bad" >&2\nexit 2\n')))
+    with pytest.raises(RuntimeError, match=r"(?s)nvcc failed \(2\).*k\.cu\(1\): error: bad"):
+        _build.build("k")
+    assert not _build.library_path("k").exists()
+
+
+def test_kernel_phase_variants_find_each_phase_once():
+    """tools/kernel_phases.py compiles each phase of the real kernel source
+    out in turn; every phase must still be found exactly once."""
+    from mapf_gpt_tpu_torch.tools import kernel_phases
+
+    src = (_build.CSRC / "fused_gpt.cu").read_text()
+    for phase in kernel_phases.PHASES:
+        variant = kernel_phases.variant_source(src, phase)
+        assert variant.count("#if 0\n") == 1 and len(variant) == len(src) + len("#if 0\n#endif\n")
+    with pytest.raises(RuntimeError, match="not found once"):
+        kernel_phases.variant_source(src.replace("qkv_rows(a, Wqkv,", "qkv_rows(a,  Wqkv,"), "qkv")
