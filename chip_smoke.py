@@ -3,25 +3,40 @@
 
     python3 chip_smoke.py [--seed S]
 
-Drives the port's main path, the batched 2M rollout, through the entry
-points a user calls, and holds every CUDA kernel of that path against its
-plain PyTorch version.  Phases, one line each (flushed):
+Drives the port's main path, the batched rollout, for each published model
+(2M, 6M, 85M) through the entry points a user calls, and holds every CUDA
+kernel of that path against its plain PyTorch version.  Phases, one line
+each (flushed):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
 2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, one nvcc
    each, all started together; build seconds and ptxas' register report.
-3. kernel vs plain version: the trained 2M (``checkpoints/MAPF-GPT-2M-r4.pt``)
-   at full width on 512 contexts, random tokens from ``--seed`` and the real
-   tokens of a reset batch.  Logits within atol 0.02 * max|ref| + 0.02 and
-   argmax agreement over the 5 action logits >= 95 % (the tolerances of
-   ``tests/test_fused_gpt.py``).
-4. rollout: 16 envs x 32 agents x 64 steps on ``random_grid(21, 0.3, s)``
+3. 2M kernel vs plain version: the trained 2M
+   (``checkpoints/MAPF-GPT-2M-r4.pt``) at full width on 512 contexts,
+   random tokens from ``--seed`` and the real tokens of a reset batch.
+   Logits within atol 0.02 * max|ref| + 0.02 and argmax agreement over the
+   5 action logits >= 95 % (the tolerances of ``tests/test_fused_gpt.py``).
+4. 2M rollout: 16 envs x 32 agents x 64 steps on ``random_grid(21, 0.3, s)``
    maps, argmax actions.  Every agent on a free cell, positions unique per
-   env, metrics in range, and the kernel's launch counter exactly one per
-   step.  Prints CSR, ISR, SoC and env-steps/s.
-5. timing: the kernel on the rollout's 512 contexts beside a whole rollout
-   step; then one forward at 8192 contexts (the rollout benchmark's 256
-   envs x 32 agents), kernel and plain version, beside the card's bound.
+   env, metrics in range, and the e2e kernel's launch counter exactly one
+   per step (the layer-stack kernel's 0).  Prints CSR, ISR, SoC and
+   env-steps/s.
+5. 2M timing: the kernel on the rollout's 512 contexts beside a whole
+   rollout step; then one forward at 8192 contexts (the rollout benchmark's
+   256 envs x 32 agents), kernel and plain version, beside the card's bound.
+6. 6M: phases 3-5 for the trained 6M (``checkpoints/MAPF-GPT-6M-r5.pt``,
+   E=256) through the same e2e kernel: 512 contexts compared, the same
+   16 x 32 x 64 rollout, timing at 8192 contexts.
+7. 85M at full width and depth (12L/12H/768d), weights from
+   ``models.gpt.init_params`` under ``--seed``, on the chunked route (plain
+   embedding and head, the layer-stack kernel): 128 contexts compared with
+   the plain route, random and reset-batch tokens, and 300 random contexts
+   (a group of 256 and one of 44, whose thinned layer fills part of a row
+   tile), same tolerances; one
+   3-layer chunk of the layer-stack kernel alone against
+   ``blocks_reference`` (stream within atol 0.02 * max|ref|); a 4 x 32 x 32
+   rollout with the layer-stack counter exactly one per step and the e2e
+   counter 0; timing at 2048 contexts (the JAX harness's 85M cap).
 
 Then the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
@@ -48,13 +63,18 @@ from mapf_gpt_tpu_torch.envs import env as menv  # noqa: E402
 from mapf_gpt_tpu_torch.maps import random_grid, sample_instance  # noqa: E402
 from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
                                                load_reference_checkpoint)
-from mapf_gpt_tpu_torch.ops import _build, fused_gpt  # noqa: E402
+from mapf_gpt_tpu_torch.models.gpt import CONFIGS, init_params  # noqa: E402
+from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
 from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
                                                  batch_reset, make_batch_rollout)
 
 CKPT = os.path.join(ROOT, "checkpoints", "MAPF-GPT-2M-r4.pt")
+CKPT_6M = os.path.join(ROOT, "checkpoints", "MAPF-GPT-6M-r5.pt")
 B, A, STEPS, MAP_SIZE, DENSITY = 16, 32, 64, 21, 0.3
+B_85M, STEPS_85M = 4, 32         # 128 contexts a step
 N_TIME = 8192                    # 256 envs x 32 agents
+N_TIME_85M = 2048                # the JAX harness's 85M context cap
+PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -84,43 +104,82 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def e2e_bound(n: int, w: fused_gpt.FusedWeights, t: int) -> tuple[float, str]:
-    """Least time (ms) of the fused forward on n contexts, and what bounds it.
-
-    Operations: the bf16 products the forward needs (the last layer thinned
-    to one query row) at the bf16 tensor rate, plus the fp32 head and one
-    exp2 per attention score at the fp32 rate.  Bytes: tokens and weights
-    read once, logits written once."""
-    layers, e, _ = w.wqkv.shape
-    f, vocab = 4 * e, w.wte.shape[0]
+def layer_ops(t: int, e: int, h: int, layers: int, last_only: bool) -> tuple[int, int]:
+    """(bf16 product FLOP, fp32 exp2 count) of a layer stack on one context,
+    the final layer thinned to one query row when last_only."""
+    f = 4 * e
     full = 2 * t * e * 3 * e + 2 * 2 * t * t * e + 2 * t * e * e + 2 * 2 * t * e * f
     last = 2 * t * e * 2 * e + 2 * e * e + 2 * 2 * t * e + 2 * e * e + 2 * 2 * e * f
-    bf16_ops = n * ((layers - 1) * full + last)
-    fp32_ops = n * (2 * e * vocab + (layers - 1) * w.n_head * t * t + w.n_head * t)
-    weight_bytes = sum(x.numel() * x.element_size() for x in w if torch.is_tensor(x))
-    io_bytes = n * t * 4 + n * vocab * 4
+    if not last_only:
+        return layers * full, layers * h * t * t
+    return (layers - 1) * full + last, (layers - 1) * h * t * t + h * t
+
+
+def bound(bf16_ops: float, fp32_ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) for this work on the card, and what bounds it."""
     t_ops = bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
-    t_bytes = (weight_bytes + io_bytes) / HBM_BYTES_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def e2e_bound(n: int, w: fused_gpt.FusedWeights, t: int) -> tuple[float, str]:
+    """Least time (ms) of the e2e forward on n contexts, and what bounds it.
+
+    Operations: the bf16 products the forward needs (the last layer thinned
+    to one query row) at the bf16 tensor rate, plus the fp32 head and one
+    exp2 per attention score at the fp32 rate.  Bytes: tokens and the
+    weights the kernel reads once, logits written once."""
+    layers, e, _ = w.wqkv.shape
+    vocab = w.wte.shape[0]
+    prod, exps = layer_ops(t, e, w.n_head, layers, last_only=True)
+    io_bytes = n * t * 4 + n * vocab * 4
+    weights = nbytes(w.wte, w.wpe, w.wht, *w.stacks()[:6], w.gf)
+    return bound(n * prod, n * (exps + 2 * e * vocab), weights + io_bytes)
+
+
+def blocks_bound(n: int, stacks: fused_blocks.LayerStacks, t: int,
+                 last_only: bool) -> tuple[float, str]:
+    """Least time (ms) of the layer stack on n contexts: its bf16 products
+    and exp2s, against x read once, the output written once and the
+    weights read once."""
+    layers, e, _ = stacks.wqkv.shape
+    prod, exps = layer_ops(t, e, stacks.n_head, layers, last_only)
+    io_bytes = n * t * e * 2 + n * (1 if last_only else t) * e * 2
+    return bound(n * prod, n * exps, nbytes(*stacks[:6]) + io_bytes)
+
+
+def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, floor: float,
+                argmax: bool) -> float:
+    """got vs ref within atol 0.02 * max|ref| + floor (and >= 95 % argmax
+    agreement over the 5 action logits); returns max |got - ref|."""
+    if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name}: kernel output {tuple(got.shape)} not finite or "
+                           f"not of shape {tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 0.02 * scale + floor
+    msg = f"[compare] {name}: n={got.shape[0]} max|err|={err:.5f} tol={tol:.5f} " \
+          f"(max|ref|={scale:.3f})"
+    agree = 1.0
+    if argmax:
+        agree = (got[:, :5].argmax(-1) == ref[:, :5].argmax(-1)).float().mean().item()
+        msg += f" argmax agreement={agree:.4f}"
+    log(msg)
+    if err > tol or agree < 0.95:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return err
+
+
 def compare(name: str, w, tokens: torch.Tensor) -> float:
-    """Kernel vs plain version on the card; returns max |kernel - plain|."""
+    """The forward's kernel route vs its plain version on the card."""
     got = fused_gpt.fused_logits(w, tokens)
     torch.cuda.synchronize()
     ref = fused_gpt.fused_logits_reference(w, tokens)
-    if got.shape != ref.shape or not torch.isfinite(got).all():
-        raise RuntimeError(f"{name}: kernel logits {tuple(got.shape)} not finite or "
-                           f"not of shape {tuple(ref.shape)}")
-    err = (got - ref).abs()
-    scale = ref.abs().max().item()
-    tol = 0.02 * scale + 0.02
-    agree = (got[:, :5].argmax(-1) == ref[:, :5].argmax(-1)).float().mean().item()
-    log(f"[compare] {name}: n={tokens.shape[0]} max|err|={err.max().item():.5f} "
-        f"tol={tol:.5f} (max|ref|={scale:.3f}) argmax agreement={agree:.4f}")
-    if err.max().item() > tol or agree < 0.95:
-        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
-    return err.max().item()
+    return check_close(name, got, ref, floor=0.02, argmax=True)
 
 
 def instances(seed: int, b: int):
@@ -130,7 +189,7 @@ def instances(seed: int, b: int):
             np.stack([i.goals for i in insts]))
 
 
-def check_rollout(final: menv.EnvState, met) -> None:
+def check_rollout(final: menv.EnvState, met, steps: int) -> None:
     pos = final.pos.long()
     bi = torch.arange(pos.shape[0], device=pos.device)[:, None]
     if final.grid[bi, pos[..., 0], pos[..., 1]].any():
@@ -139,14 +198,129 @@ def check_rollout(final: menv.EnvState, met) -> None:
     if (lin.sort(-1).values.diff(dim=-1) == 0).any():
         raise RuntimeError("rollout: two agents share a cell")
     for name, vals, hi in (("csr", met.csr, 1.0), ("isr", met.isr, 1.0),
-                           ("soc", met.soc, float(A * STEPS)),
-                           ("makespan", met.makespan, float(STEPS)),
-                           ("ep_length", met.ep_length, float(STEPS))):
+                           ("soc", met.soc, float(A * steps)),
+                           ("makespan", met.makespan, float(steps)),
+                           ("ep_length", met.ep_length, float(steps))):
         if not torch.isfinite(vals).all() or (vals < 0).any() or (vals > hi).any():
             raise RuntimeError(f"rollout: {name} outside [0, {hi}]: {vals.tolist()}")
     solved = (final.pos == final.goal).all(-1).float().mean(-1)
     if not torch.allclose(solved, met.isr, rtol=0, atol=1e-6):
         raise RuntimeError("rollout: ISR does not match the final positions")
+
+
+def reset_batch(seed: int, b: int, steps: int, dev):
+    grids, starts, goals = instances(seed, b)
+    spec = menv.MapfEnvSpec(height=grids.shape[1], width=grids.shape[2], num_agents=A,
+                            max_episode_steps=steps)
+    states = batch_reset(spec, grids, starts, goals, np.ones((b, A), bool), device=dev)
+    return spec, states, _tokens_of(states).reshape(b * A, -1)
+
+
+def random_tokens(seed: int, n: int, cfg, dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(n, cfg.block_size))).to(dev, torch.int32)
+
+
+def rollout(label: str, spec, model, states, b: int, steps: int, e2e: int,
+            blocks: int) -> tuple[float, tuple[int, int]]:
+    """The rollout with both launch counters set to 0 just before it; checks
+    they read (e2e, blocks) just after.  Returns its seconds and the counts."""
+    run = make_batch_rollout(spec, model, do_sample=False)
+    torch.cuda.synchronize()
+    fused_gpt.launches = 0
+    fused_blocks.launches = 0
+    t0 = time.perf_counter()
+    final, met = run(states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = (fused_gpt.launches, fused_blocks.launches)
+    log(f"[rollout] {label} B={b} A={A} steps={steps}: {dt:.3f} s, "
+        f"{b * steps / dt:.1f} env-steps/s, kernel launches e2e {got[0]} blocks {got[1]}")
+    if got != (e2e, blocks):
+        raise RuntimeError(f"rollout {label}: kernel launches (e2e, blocks) {got}, "
+                           f"expected {(e2e, blocks)}")
+    check_rollout(final, met, steps)
+    log(f"[rollout] {label} CSR {met.csr.mean().item():.4f} ISR {met.isr.mean().item():.4f} "
+        f"SoC {met.soc.mean().item():.2f} makespan {met.makespan.mean().item():.2f} "
+        f"ep_length {met.ep_length.mean().item():.2f}")
+    return dt, got
+
+
+def e2e_model(label: str, model, seed: int, dev) -> dict:
+    """Compare, rollout and timing of a model on the e2e route."""
+    cfg = model.cfg
+    w = fused_gpt.stack_weights(model)
+    spec, states, real = reset_batch(seed, B, STEPS, dev)
+    rand = random_tokens(seed, B * A, cfg, dev)
+    max_err = max(compare(f"{label} random tokens", w, rand),
+                  compare(f"{label} reset-batch tokens", w, real))
+    dt, (launches, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
+
+    # timing: the rollout's own 512 contexts, then the benchmark's 8192
+    ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=10)
+    log(f"[timing] {label} N={real.shape[0]}: kernel {ms_step:.3f} ms of a "
+        f"{1e3 * dt / STEPS:.3f} ms rollout step")
+    tokens = real.repeat(N_TIME // real.shape[0], 1)
+    ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=5)
+    plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
+                                for c in tokens.split(PLAIN_CHUNK[label])], reps=2)
+    bound_ms, bound_by = e2e_bound(N_TIME, w, cfg.block_size)
+    log(f"[timing] {label} N={N_TIME}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+    return {"name": "fused_gpt_e2e", "model": label, "route": "cuda",
+            "source": "mapf_gpt_tpu_torch/csrc/fused_gpt.cu",
+            "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:182",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "n_contexts": N_TIME}
+
+
+def blocks_model(seed: int, dev) -> dict:
+    """The 85M on the chunked route: compare, the layer-stack kernel alone,
+    rollout and timing."""
+    cfg = CONFIGS["85M"]
+    gen = torch.Generator().manual_seed(seed)
+    model = load_model(cfg, init_params(cfg, gen), device=dev)
+    w = fused_gpt.stack_weights(model)
+    stacks = w.stacks()
+    spec, states, real = reset_batch(seed, B_85M, STEPS_85M, dev)
+    rand = random_tokens(seed, B_85M * A, cfg, dev)
+    odd = random_tokens(seed + 1, 300, cfg, dev)
+    max_err = max(compare("85M random tokens", w, rand),
+                  compare("85M reset-batch tokens", w, real),
+                  compare("85M random tokens, groups of 256 + 44", w, odd))
+
+    # the layer-stack kernel alone: one 3-layer chunk, every position out
+    x = (w.wte32[real.long()] + w.wpe32).to(torch.bfloat16)
+    chunk = stacks.chunk(0, 3)
+    got = fused_blocks.fused_blocks(x, chunk, last_only=False)
+    torch.cuda.synchronize()
+    ref = fused_blocks.blocks_reference(x, chunk, last_only=False)
+    check_close("85M blocks 3-layer chunk, stream", got, ref, floor=0.0, argmax=False)
+
+    # one layer-stack launch per forward: the chunked route runs all 12 layers in one call
+    dt, (_, launches) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
+                                blocks=STEPS_85M)
+
+    ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=5)
+    log(f"[timing] 85M N={real.shape[0]}: forward {ms_step:.3f} ms of a "
+        f"{1e3 * dt / STEPS_85M:.3f} ms rollout step")
+    tokens = real.repeat(N_TIME_85M // real.shape[0], 1)
+    x = (w.wte32[tokens.long()] + w.wpe32).to(torch.bfloat16)
+    ms = cuda_ms(lambda: fused_blocks.fused_blocks(x, stacks, last_only=True), reps=3)
+    fwd_ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=2)
+    plain_ms = cuda_ms(lambda: [fused_blocks.blocks_reference(c, stacks, last_only=True)
+                                for c in x.split(PLAIN_CHUNK["85M"])], reps=2)
+    bound_ms, bound_by = blocks_bound(N_TIME_85M, stacks, cfg.block_size, last_only=True)
+    log(f"[timing] 85M N={N_TIME_85M}: kernel {ms:.3f} ms (whole forward {fwd_ms:.3f} ms), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.2f} % of bound")
+    return {"name": "fused_blocks", "model": "85M", "route": "cuda",
+            "source": "mapf_gpt_tpu_torch/csrc/fused_blocks.cu",
+            "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:167",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "n_contexts": N_TIME_85M}
 
 
 def main() -> int:
@@ -178,59 +352,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] fused_gpt kernel config {fused_gpt.kernel_config()}")
+    log(f"[build] fused_blocks kernel config {fused_blocks.kernel_config()}")
 
-    # 3. kernel vs plain version, trained 2M at full width
+    # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
-    model = load_model(cfg, sd, device=dev)
-    w = fused_gpt.stack_weights(model)
-    grids, starts, goals = instances(args.seed, B)
-    spec = menv.MapfEnvSpec(height=grids.shape[1], width=grids.shape[2], num_agents=A,
-                            max_episode_steps=STEPS)
-    states = batch_reset(spec, grids, starts, goals, np.ones((B, A), bool), device=dev)
-    real = _tokens_of(states).reshape(B * A, -1)
-    rand = torch.from_numpy(np.random.RandomState(args.seed).randint(
-        0, cfg.vocab_size, size=(B * A, cfg.block_size))).to(dev, torch.int32)
-    max_err = max(compare("random tokens", w, rand), compare("reset-batch tokens", w, real))
-
-    # 4. rollout through the kernel
-    run = make_batch_rollout(spec, model, do_sample=False)
-    torch.cuda.synchronize()
-    fused_gpt.launches = 0
-    t0 = time.perf_counter()
-    final, met = run(states)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = fused_gpt.launches
-    log(f"[rollout] B={B} A={A} steps={STEPS}: {dt:.3f} s, {B * STEPS / dt:.1f} env-steps/s, "
-        f"kernel launches {launches}")
-    if launches != STEPS:
-        raise RuntimeError(f"rollout: {launches} kernel launches, expected {STEPS}")
-    check_rollout(final, met)
-    log(f"[rollout] CSR {met.csr.mean().item():.4f} ISR {met.isr.mean().item():.4f} "
-        f"SoC {met.soc.mean().item():.2f} makespan {met.makespan.mean().item():.2f} "
-        f"ep_length {met.ep_length.mean().item():.2f}")
-
-    # 5. timing: the rollout's own 512 contexts, then the benchmark's 8192
-    ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=10)
-    log(f"[timing] N={real.shape[0]}: kernel {ms_step:.3f} ms of a "
-        f"{1e3 * dt / STEPS:.3f} ms rollout step")
-    tokens = real.repeat(N_TIME // real.shape[0], 1)
-    ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=5)
-    plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
-                                for c in tokens.split(1024)], reps=2)
-    bound_ms, bound_by = e2e_bound(N_TIME, w, cfg.block_size)
-    log(f"[timing] N={N_TIME}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+    entries = [e2e_model("2M", load_model(cfg, sd, device=dev), args.seed, dev)]
+    cfg, sd = load_reference_checkpoint(CKPT_6M)
+    entries.append(e2e_model("6M", load_model(cfg, sd, device=dev), args.seed, dev))
+    entries.append(blocks_model(args.seed, dev))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [{
-        "name": "fused_gpt_e2e", "route": "cuda",
-        "source": "mapf_gpt_tpu_torch/csrc/fused_gpt.cu",
-        "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:182",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "n_contexts": N_TIME}]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """mapf_gpt_tpu_torch — the PyTorch/CUDA port of ``mapf_gpt_tpu``.
 
-The batched one-shot MAPF rollout on an NVIDIA H100:
-reset (``envs/env.py``, dense cost2go fields from ``ops/cost2go.py``) ->
-tokenize (``ops/obs.py``) -> policy forward (``models/gpt.py``; on CUDA the
-hand-written kernel in ``csrc/fused_gpt.cu`` through ``ops/fused_gpt.py``) ->
-act -> step (``envs/dynamics.py``) -> episode metrics (``envs/metrics.py``),
+The batched one-shot MAPF rollout of the 2M, 6M and 85M policies on an
+NVIDIA H100: reset (``envs/env.py``, dense cost2go fields from
+``ops/cost2go.py``) -> tokenize (``ops/obs.py``) -> policy forward
+(``models/gpt.py``; on CUDA through ``ops/fused_gpt.py`` the hand-written
+kernels of ``csrc/fused_gpt.cu`` for the 2M and 6M and of
+``csrc/fused_blocks.cu``, via ``ops/fused_blocks.py``, for the 85M) -> act
+-> step (``envs/dynamics.py``) -> episode metrics (``envs/metrics.py``),
 driven by ``parallel/rollout.py``.
 
 The package imports torch and numpy only: nothing of JAX and nothing of

@@ -133,16 +133,35 @@ def make_forward(model: GPT):
     """Inference forward: tokens [N, T] -> logits [N, vocab] at the last
     position.
 
-    With the model on CUDA this runs the hand-written kernel of
-    ``ops/fused_gpt.py`` on weights stacked once here; on the CPU it runs
-    the module itself (erf GELU), as the JAX package runs the flax module
-    there."""
+    With the model on CUDA this runs the hand-written kernels through
+    ``ops/fused_gpt.fused_logits`` on weights stacked once here: the e2e
+    kernel for the 2M and 6M, the layer-stack kernel for the 85M; a width
+    neither is built for raises.  On the CPU it runs the module itself (erf
+    GELU), as the JAX package runs the flax module there."""
     if model.lm_head.weight.device.type == "cuda":
         from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, stack_weights
 
         weights = stack_weights(model)
         return lambda tokens: fused_logits(weights, tokens)
     return lambda tokens: model(tokens)
+
+
+def init_params(cfg: GPTConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """Random fp32 weights in the reference key layout, by the JAX package's
+    ``init_params`` scheme: normal(0.02) for every embedding and linear
+    weight, the residual projections (``c_proj``) scaled by 1/sqrt(2L),
+    LayerNorm gains 1.  Drawn from `generator`, on its device."""
+    scale = 1.0 / math.sqrt(2.0 * cfg.n_layer)
+    sd = {}
+    # the tied head is listed once, as the token embedding
+    for name, p in GPT(cfg).named_parameters():
+        if name.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight")):
+            sd[name] = torch.ones(p.shape, device=generator.device)
+            continue
+        w = torch.randn(p.shape, generator=generator, device=generator.device) * 0.02
+        sd[name] = w * scale if name.endswith("c_proj.weight") else w
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
 
 
 def action_logits(logits: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,192 @@
+"""GPT layer stack on the residual stream: bf16 x [N, T, E] through a chunk
+of layers -> bf16 [N, T, E], or [N, 1, E] (the last position) with the
+chunk's final layer thinned.
+
+Port of ``mapf_gpt_tpu/ops/fused_gpt.py``'s ``_block_kernel`` (through
+``_blocks_call``), the 85M's layer chunks:
+
+- :class:`LayerStacks` holds a chunk's stacked layer weights (bf16 [L, in,
+  out] matrices with the attention scale and log2(e) folded into the W_q
+  columns, fp32 LN gains).
+- :func:`blocks_reference` is the plain PyTorch version of the layer
+  stack's arithmetic: bf16 activations between ops with fp32 accumulation,
+  fp32 two-pass LayerNorm, the ``exp2`` softmax clamped at 100 and
+  normalised after P@V, tanh GELU, and, when ``last_only``, the thinned
+  final layer (K/V over all positions; Q, attention and MLP for the last
+  position only).  ``ops/fused_gpt.py``'s plain forward runs its layers
+  through it, and the CPU tests and ``chip_smoke.py`` compare with it.
+- :func:`fused_blocks` is the wrapper: CPU tensors take the plain version;
+  CUDA tensors launch the hand-written kernels of ``csrc/fused_blocks.cu``
+  (built by ``ops/_build.py``) or raise.  ``launches`` counts its calls of
+  the kernel library, one per chunk.
+
+The kernel is built for the 85M's shape (T=256, E=768, 12 heads); the plain
+version takes any shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+_EPS = 1e-5
+_EXP2_CLAMP = 100.0   # overflow guard on the exp2 argument (bf16 max ~2^127)
+GROUP = 256           # contexts a kernel call processes at a time (workspace ~0.8 GB)
+
+launches = 0   # kernel calls by fused_blocks; callers may reset it to 0
+
+
+class LayerStacks(NamedTuple):
+    wqkv: torch.Tensor    # bf16 [L, E, 3E], W_q columns pre-scaled
+    wproj: torch.Tensor   # bf16 [L, E, E]
+    wfc: torch.Tensor     # bf16 [L, E, 4E]
+    wfc2: torch.Tensor    # bf16 [L, 4E, E]
+    g1: torch.Tensor      # f32 [L, E]
+    g2: torch.Tensor      # f32 [L, E]
+    n_head: int
+
+    def chunk(self, lo: int, hi: int) -> "LayerStacks":
+        """Layers lo .. hi-1."""
+        return LayerStacks(*(s[lo:hi] for s in self[:6]), n_head=self.n_head)
+
+
+def ln_f32(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    return (xc * torch.rsqrt(var + _EPS)) * gain
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 product with fp32 accumulation (fp32 result)."""
+    return a.float() @ w.float()
+
+
+def blocks_reference(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: bf16 x [N, T, E] through the
+    chunk's layers -> bf16 [N, T, E], or [N, 1, E] when last_only."""
+    bf16 = torch.bfloat16
+    n, t, e = x.shape
+    layers = stacks.wqkv.shape[0]
+    h = stacks.n_head
+    dh = e // h
+    for l in range(layers):
+        xn = ln_f32(x.float(), stacks.g1[l]).to(bf16)
+        if not (last_only and l == layers - 1):
+            q, k, v = _mm(xn, stacks.wqkv[l]).to(bf16).split(e, dim=-1)
+        else:
+            # thinned final layer: only position t-1 is read downstream
+            k, v = _mm(xn, stacks.wqkv[l][:, e:]).to(bf16).split(e, dim=-1)
+            q = _mm(xn[:, -1:], stacks.wqkv[l][:, :e]).to(bf16)
+            x = x[:, -1:]
+        tq = q.shape[1]
+        q = q.reshape(n, tq, h, dh).transpose(1, 2)
+        k = k.reshape(n, t, h, dh).transpose(1, 2)
+        v = v.reshape(n, t, h, dh).transpose(1, 2)
+        # scores already in the exp2 domain (scale * log2(e) folded into W_q)
+        ex = torch.exp2(_mm(q, k.transpose(-1, -2)).clamp(max=_EXP2_CLAMP)).to(bf16)
+        denom = ex.float().sum(-1, keepdim=True)
+        att = (_mm(ex, v) * (1.0 / denom)).to(bf16)
+        att = att.transpose(1, 2).reshape(n, tq, e)
+        x = (x.float() + _mm(att, stacks.wproj[l]).to(bf16).float()).to(bf16)
+        xn2 = ln_f32(x.float(), stacks.g2[l]).to(bf16)
+        hmid = _mm(xn2, stacks.wfc[l]).to(bf16)
+        hact = F.gelu(hmid.float(), approximate="tanh").to(bf16)
+        x = (x.float() + _mm(hact, stacks.wfc2[l]).to(bf16).float()).to(bf16)
+    return x
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from csrc/fused_blocks.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_blocks_config.argtypes = [ctypes.POINTER(i)] * 3
+    lib.fused_blocks_config.restype = i
+    lib.fused_blocks_workspace.argtypes = [i]
+    lib.fused_blocks_workspace.restype = ctypes.c_longlong
+    lib.fused_blocks_forward.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.fused_blocks_forward.restype = i
+    lib.fused_blocks_error_string.argtypes = [i]
+    lib.fused_blocks_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built on first use."""
+    from mapf_gpt_tpu_torch.ops import _build
+
+    return bind(_build.load("fused_blocks"))
+
+
+@functools.cache
+def kernel_config() -> dict[str, int]:
+    """The shape constants the kernel was built for (builds it if needed)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    _library().fused_blocks_config(*[ctypes.byref(v) for v in vals])
+    return dict(zip(("t", "e", "h"), (v.value for v in vals)))
+
+
+def check_tensor(kernel: str, name: str, ten: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                 device: torch.device) -> None:
+    """Raise unless `ten` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if ten.dtype != dtype or tuple(ten.shape) != shape or ten.device != device \
+            or not ten.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} {shape} on "
+                         f"{device}; got {ten.dtype} {tuple(ten.shape)} on {ten.device}")
+
+
+def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch.Tensor:
+    """bf16 x [N, T, E] through the chunk's layers -> bf16 [N, T, E], or
+    [N, 1, E] when last_only.
+
+    CPU tensors take :func:`blocks_reference`; CUDA tensors launch the
+    kernel (one call of its library per chunk) or raise."""
+    global launches
+    if x.device.type == "cpu":
+        return blocks_reference(x, stacks, last_only)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_blocks: no kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"fused_blocks: x must be [N, T, E]; got {tuple(x.shape)}")
+    lib = _library()
+    cfg = kernel_config()
+    n, t, e = x.shape
+    layers = stacks.wqkv.shape[0]
+    if (t, e, stacks.n_head) != (cfg["t"], cfg["e"], cfg["h"]) or layers == 0:
+        raise ValueError(
+            f"fused_blocks: the kernel is built for T={cfg['t']}, n_embd={cfg['e']}, "
+            f"{cfg['h']} heads; got T={t}, n_embd={e}, {stacks.n_head} heads, {layers} layers")
+    dev = x.device
+    f = 4 * e
+    for name, ten, dtype, shape in (
+            ("x", x, torch.bfloat16, (n, t, e)),
+            ("wqkv", stacks.wqkv, torch.bfloat16, (layers, e, 3 * e)),
+            ("wproj", stacks.wproj, torch.bfloat16, (layers, e, e)),
+            ("wfc", stacks.wfc, torch.bfloat16, (layers, e, f)),
+            ("wfc2", stacks.wfc2, torch.bfloat16, (layers, f, e)),
+            ("g1", stacks.g1, torch.float32, (layers, e)),
+            ("g2", stacks.g2, torch.float32, (layers, e))):
+        check_tensor("fused_blocks", name, ten, dtype, shape, dev)
+    stream_x = x.clone()   # the kernel updates the residual stream in place
+    out = torch.empty((n, 1, e), dtype=torch.bfloat16, device=dev) if last_only else stream_x
+    if n == 0:
+        return out
+    group = min(n, GROUP)
+    workspace = torch.empty(lib.fused_blocks_workspace(group), dtype=torch.bfloat16,
+                            device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.fused_blocks_forward(
+            stream_x.data_ptr(), out.data_ptr(), stacks.wqkv.data_ptr(),
+            stacks.wproj.data_ptr(), stacks.wfc.data_ptr(), stacks.wfc2.data_ptr(),
+            stacks.g1.data_ptr(), stacks.g2.data_ptr(), workspace.data_ptr(), n, layers,
+            int(last_only), group, stream)
+    if rc != 0:
+        raise RuntimeError("fused_blocks kernel launch failed: "
+                           f"{lib.fused_blocks_error_string(rc).decode()} ({rc})")
+    launches += 1
+    return out

@@ -1,24 +1,31 @@
-"""Fused whole-GPT inference forward: tokens [N, 256] -> last-position logits.
+"""Fused GPT inference forward: tokens [N, 256] -> last-position logits.
 
-Port of ``mapf_gpt_tpu/ops/fused_gpt.py`` (``_e2e_kernel`` through
-``fused_logits``'s single-call path):
+Port of ``mapf_gpt_tpu/ops/fused_gpt.py``'s ``fused_logits`` and its two
+routes, chosen as the JAX package chooses them
+(:func:`default_layers_per_call`):
 
-- :func:`stack_weights` stacks the per-layer weights into the kernel's
-  layout: bf16 [L, in, out] matrices with the attention scale and log2(e)
-  folded into the W_q columns, fp32 LN gains, bf16 embedding tables and the
-  tied head as fp32 [E, vocab] of the bf16-rounded token embedding.
-- :func:`fused_logits_reference` is the plain PyTorch version of the
-  kernel's arithmetic: bf16 activations between ops with fp32 accumulation,
-  fp32 two-pass LayerNorm, the ``exp2`` softmax clamped at 100 and
-  normalised after P@V, tanh GELU, the thinned last layer (K/V over all
-  positions; Q, attention and MLP for the last position only) and the fp32
-  head.  The CPU tests and ``chip_smoke.py``'s comparison use it.
+- the e2e route (2M, 6M; all layers' weights fit one call): embedding, all
+  layers, final LN and head in one kernel, ``_e2e_kernel``'s counterpart
+  ``csrc/fused_gpt.cu``, built for E=160/5 heads and E=256/8 heads;
+- the chunked route (85M): the embedding and the head in plain PyTorch (the
+  JAX package leaves them to XLA), the layers through
+  ``ops/fused_blocks.py`` (``_block_kernel``'s counterpart).  The two
+  routes round differently, as in the JAX package: the e2e embedding adds
+  the bf16 tables and its head reads the bf16-rounded wte; the chunked
+  embedding adds the fp32 tables before rounding and its head reads the
+  fp32 wte.
+
+- :func:`stack_weights` stacks a model's weights into the kernels' layout:
+  bf16 [L, in, out] matrices with the attention scale and log2(e) folded
+  into the W_q columns, fp32 LN gains, the bf16 and fp32 embedding tables
+  and the e2e head as fp32 [E, vocab] of the bf16-rounded token embedding.
+- :func:`fused_logits_reference` is the plain PyTorch version of either
+  route; the CPU tests and ``chip_smoke.py``'s comparisons use it.
 - :func:`fused_logits` is the wrapper: CPU tensors take the plain version;
-  CUDA tensors launch the hand-written kernel of ``csrc/fused_gpt.cu`` (built
-  by ``ops/_build.py``) or raise.  ``launches`` counts its kernel launches.
-
-The kernel is built for the 2M shape (T=256, E=160, head dim 32); the plain
-version takes any shape.
+  CUDA tensors launch the e2e kernel (one launch per call) or, on the
+  chunked route, the layer-stack kernel (one launch per call, all layers),
+  or raise.  ``launches`` counts the e2e kernel's launches;
+  ``fused_blocks.launches`` the layer-stack kernel's.
 """
 
 from __future__ import annotations
@@ -26,22 +33,25 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
-import torch.nn.functional as F
+
+from mapf_gpt_tpu_torch.ops import fused_blocks
+from mapf_gpt_tpu_torch.ops.fused_blocks import (LayerStacks, blocks_reference, check_tensor,
+                                                 ln_f32)
 
 _LOG2E = math.log2(math.e)
-_EPS = 1e-5
-_EXP2_CLAMP = 100.0   # overflow guard on the exp2 argument (bf16 max ~2^127)
 
-launches = 0   # kernel launches by fused_logits; callers may reset it to 0
+launches = 0   # e2e kernel launches by fused_logits; callers may reset it to 0
 
 
 class FusedWeights(NamedTuple):
     wte: torch.Tensor     # bf16 [V, E]
     wpe: torch.Tensor     # bf16 [T, E]
-    wht: torch.Tensor     # f32 [E, V] tied head (bf16-rounded wte, transposed)
+    wht: torch.Tensor     # f32 [E, V] e2e head (bf16-rounded wte, transposed)
+    wte32: torch.Tensor   # f32 [V, E] chunked route's embedding and head
+    wpe32: torch.Tensor   # f32 [T, E]
     wqkv: torch.Tensor    # bf16 [L, E, 3E], W_q columns pre-scaled
     wproj: torch.Tensor   # bf16 [L, E, E]
     wfc: torch.Tensor     # bf16 [L, E, 4E]
@@ -51,9 +61,13 @@ class FusedWeights(NamedTuple):
     gf: torch.Tensor      # f32 [E]
     n_head: int
 
+    def stacks(self) -> LayerStacks:
+        return LayerStacks(self.wqkv, self.wproj, self.wfc, self.wfc2, self.g1, self.g2,
+                           self.n_head)
+
 
 def stack_weights(model) -> FusedWeights:
-    """Stack a :class:`models.gpt.GPT`'s weights into the kernel's layout,
+    """Stack a :class:`models.gpt.GPT`'s weights into the kernels' layout,
     on the model's device."""
     cfg = model.cfg
     e = cfg.n_embd
@@ -62,12 +76,16 @@ def stack_weights(model) -> FusedWeights:
     wqkv = torch.stack([kernel(b.attn.c_attn) for b in blocks])
     fold = (1.0 / math.sqrt(e // cfg.n_head)) * _LOG2E
     wqkv[:, :, :e] *= fold
-    wte = model.transformer.wte.weight.detach().to(torch.bfloat16)
+    wte32 = model.transformer.wte.weight.detach().float().contiguous()
+    wpe32 = model.transformer.wpe.weight.detach().float().contiguous()
+    wte = wte32.to(torch.bfloat16)
     bf = lambda ts: torch.stack(ts).to(torch.bfloat16).contiguous()
     return FusedWeights(
-        wte=wte.contiguous(),
-        wpe=model.transformer.wpe.weight.detach().to(torch.bfloat16).contiguous(),
+        wte=wte,
+        wpe=wpe32.to(torch.bfloat16),
         wht=wte.float().T.contiguous(),
+        wte32=wte32,
+        wpe32=wpe32,
         wqkv=wqkv.to(torch.bfloat16).contiguous(),
         wproj=bf([kernel(b.attn.c_proj) for b in blocks]),
         wfc=bf([kernel(b.mlp.c_fc) for b in blocks]),
@@ -79,60 +97,56 @@ def stack_weights(model) -> FusedWeights:
     )
 
 
-def _ln_f32(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
-    mu = x.mean(-1, keepdim=True)
-    xc = x - mu
-    var = (xc * xc).mean(-1, keepdim=True)
-    return (xc * torch.rsqrt(var + _EPS)) * gain
+def default_layers_per_call(n_embd: int, n_layer: int) -> int:
+    """Layers per kernel call in the JAX package: all while the stacked
+    weights fit its VMEM budget (2M, 6M), chunks otherwise (85M: 3)."""
+    per_layer_bytes = 2 * (n_embd * 3 * n_embd + n_embd ** 2 + 8 * n_embd ** 2)
+    budget = 48 * 2 ** 20
+    return max(1, min(n_layer, budget // per_layer_bytes))
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """bf16 x bf16 product with fp32 accumulation (fp32 result)."""
-    return a.float() @ w.float()
+def _e2e_route(w: FusedWeights) -> bool:
+    """Whether the JAX package runs these weights in one e2e call."""
+    layers, e, _ = w.wqkv.shape
+    return default_layers_per_call(e, layers) >= layers
+
+
+def _e2e_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
+    t = tokens.shape[1]
+    x = (w.wte[tokens.long()].float() + w.wpe[:t].float()).to(torch.bfloat16)  # [N, T, E]
+    x = blocks_reference(x, w.stacks(), last_only=True)
+    return ln_f32(x[:, -1].float(), w.gf) @ w.wht
+
+
+def chunked_logits(w: FusedWeights, tokens: torch.Tensor, layers_per_call: int,
+                   blocks: Callable = blocks_reference) -> torch.Tensor:
+    """The chunked route: plain embedding, `blocks` over chunks of
+    `layers_per_call` layers (the last chunk thinned), plain head."""
+    t = tokens.shape[1]
+    layers = w.wqkv.shape[0]
+    x = (w.wte32[tokens.long()] + w.wpe32[:t]).to(torch.bfloat16)
+    stacks = w.stacks()
+    for lo in range(0, layers, layers_per_call):
+        hi = min(lo + layers_per_call, layers)
+        x = blocks(x, stacks.chunk(lo, hi), hi == layers)
+    return ln_f32(x[:, 0].float(), w.gf) @ w.wte32.T
 
 
 def fused_logits_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: tokens int [N, T] -> fp32 logits
-    [N, vocab] at the last position."""
-    bf16 = torch.bfloat16
-    n, t = tokens.shape
+    """Plain PyTorch version of :func:`fused_logits`, on any device: tokens
+    int [N, T] -> fp32 logits [N, vocab] at the last position."""
+    if _e2e_route(w):
+        return _e2e_reference(w, tokens)
     layers, e, _ = w.wqkv.shape
-    h = w.n_head
-    dh = e // h
-    x = (w.wte[tokens.long()].float() + w.wpe[:t].float()).to(bf16)  # [N, T, E]
-    for l in range(layers):
-        xn = _ln_f32(x.float(), w.g1[l]).to(bf16)
-        if l < layers - 1:
-            q, k, v = _mm(xn, w.wqkv[l]).to(bf16).split(e, dim=-1)
-        else:
-            # thinned last layer: the head reads only position t-1
-            k, v = _mm(xn, w.wqkv[l][:, e:]).to(bf16).split(e, dim=-1)
-            q = _mm(xn[:, -1:], w.wqkv[l][:, :e]).to(bf16)
-            x = x[:, -1:]
-        tq = q.shape[1]
-        q = q.reshape(n, tq, h, dh).transpose(1, 2)
-        k = k.reshape(n, t, h, dh).transpose(1, 2)
-        v = v.reshape(n, t, h, dh).transpose(1, 2)
-        # scores already in the exp2 domain (scale * log2(e) folded into W_q)
-        ex = torch.exp2(_mm(q, k.transpose(-1, -2)).clamp(max=_EXP2_CLAMP)).to(bf16)
-        denom = ex.float().sum(-1, keepdim=True)
-        att = (_mm(ex, v) * (1.0 / denom)).to(bf16)
-        att = att.transpose(1, 2).reshape(n, tq, e)
-        x = (x.float() + _mm(att, w.wproj[l]).to(bf16).float()).to(bf16)
-        xn2 = _ln_f32(x.float(), w.g2[l]).to(bf16)
-        hmid = _mm(xn2, w.wfc[l]).to(bf16)
-        hact = F.gelu(hmid.float(), approximate="tanh").to(bf16)
-        x = (x.float() + _mm(hact, w.wfc2[l]).to(bf16).float()).to(bf16)
-    xf = _ln_f32(x[:, -1].float(), w.gf)
-    return xf @ w.wht
+    return chunked_logits(w, tokens, default_layers_per_call(e, layers))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from csrc/fused_gpt.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_gpt_config.argtypes = [ctypes.POINTER(i)] * 5
+    lib.fused_gpt_config.argtypes = [i] + [ctypes.POINTER(i)] * 5
     lib.fused_gpt_config.restype = i
-    lib.fused_gpt_forward.argtypes = [p] * 13 + [i] * 4 + [p]
+    lib.fused_gpt_forward.argtypes = [i, i] + [p] * 13 + [i] * 4 + [p]
     lib.fused_gpt_forward.restype = i
     lib.fused_gpt_error_string.argtypes = [i]
     lib.fused_gpt_error_string.restype = ctypes.c_char_p
@@ -148,41 +162,31 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel_config() -> dict[str, int]:
-    """The shape constants the kernel was built for (builds it if needed)."""
-    vals = [ctypes.c_int() for _ in range(5)]
-    _library().fused_gpt_config(*[ctypes.byref(v) for v in vals])
-    return dict(zip(("t", "e", "dh", "max_vocab", "smem_bytes"),
-                    (v.value for v in vals)))
-
-
-def _check(name: str, ten: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if ten.dtype != dtype or tuple(ten.shape) != shape or ten.device != device \
-            or not ten.is_contiguous():
-        raise ValueError(f"fused_gpt: {name} must be a contiguous {dtype} {shape} on "
-                         f"{device}; got {ten.dtype} {tuple(ten.shape)} on {ten.device}")
-
-
-def fused_logits(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens int [N, T] -> fp32 logits [N, vocab] at the last position.
-
-    CPU tensors take :func:`fused_logits_reference`; CUDA tensors launch the
-    kernel (one launch per call) or raise."""
-    global launches
-    if tokens.device.type == "cpu":
-        return fused_logits_reference(w, tokens)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"fused_gpt: no kernel for device {tokens.device}")
+def kernel_config() -> dict[tuple[int, int], dict[str, int]]:
+    """The widths the kernel was built for, (n_embd, n_head) -> its shape
+    constants (builds it if needed)."""
     lib = _library()
-    cfg = kernel_config()
+    built = {}
+    for i in range(16):
+        vals = [ctypes.c_int() for _ in range(5)]
+        if lib.fused_gpt_config(i, *[ctypes.byref(v) for v in vals]):
+            break
+        cfg = dict(zip(("t", "e", "h", "max_vocab", "smem_bytes"), (v.value for v in vals)))
+        built[(cfg["e"], cfg["h"])] = cfg
+    return built
+
+
+def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
+    global launches
+    lib = _library()
     n, t = tokens.shape
     layers, e, _ = w.wqkv.shape
-    vocab = w.wte.shape[0]
-    if (t, e, e // w.n_head) != (cfg["t"], cfg["e"], cfg["dh"]) or e % w.n_head:
+    cfg = kernel_config().get((e, w.n_head))
+    if cfg is None or t != cfg["t"]:
         raise ValueError(
-            f"fused_gpt: the kernel is built for T={cfg['t']}, n_embd={cfg['e']}, "
-            f"head dim {cfg['dh']}; got T={t}, n_embd={e}, {w.n_head} heads")
+            f"fused_gpt: the kernel is built for T=256 and (n_embd, n_head) in "
+            f"{sorted(kernel_config())}; got T={t}, n_embd={e}, {w.n_head} heads")
+    vocab = w.wte.shape[0]
     if vocab > cfg["max_vocab"]:
         raise ValueError(f"fused_gpt: vocab {vocab} > {cfg['max_vocab']}")
     dev = tokens.device
@@ -199,7 +203,7 @@ def fused_logits(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
             ("g1", w.g1, torch.float32, (layers, e)),
             ("g2", w.g2, torch.float32, (layers, e)),
             ("gf", w.gf, torch.float32, (e,))):
-        _check(name, ten, dtype, shape, dev)
+        check_tensor("fused_gpt", name, ten, dtype, shape, dev)
     if w.wpe.shape[0] < t:
         raise ValueError(f"fused_gpt: wpe has {w.wpe.shape[0]} positions < T={t}")
     out = torch.empty((n, vocab), dtype=torch.float32, device=dev)
@@ -210,12 +214,30 @@ def fused_logits(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_gpt_forward(
-            tokens.data_ptr(), w.wte.data_ptr(), w.wpe.data_ptr(), w.wht.data_ptr(),
-            w.wqkv.data_ptr(), w.wproj.data_ptr(), w.wfc.data_ptr(), w.wfc2.data_ptr(),
-            w.g1.data_ptr(), w.g2.data_ptr(), w.gf.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), n, layers, vocab, grid, stream)
+            e, w.n_head, tokens.data_ptr(), w.wte.data_ptr(), w.wpe.data_ptr(),
+            w.wht.data_ptr(), w.wqkv.data_ptr(), w.wproj.data_ptr(), w.wfc.data_ptr(),
+            w.wfc2.data_ptr(), w.g1.data_ptr(), w.g2.data_ptr(), w.gf.data_ptr(),
+            out.data_ptr(), workspace.data_ptr(), n, layers, vocab, grid, stream)
     if rc != 0:
         raise RuntimeError("fused_gpt kernel launch failed: "
                            f"{lib.fused_gpt_error_string(rc).decode()} ({rc})")
     launches += 1
     return out
+
+
+def fused_logits(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens int [N, T] -> fp32 logits [N, vocab] at the last position.
+
+    The route is the JAX package's: e2e when :func:`default_layers_per_call`
+    covers every layer, chunked otherwise.  CPU tensors take
+    :func:`fused_logits_reference`; CUDA tensors launch the e2e kernel, or
+    on the chunked route the layer-stack kernel once over all layers (on the
+    GPU the chunk size does not change the result: x is bf16 at every layer
+    boundary), or raise."""
+    if tokens.device.type == "cpu":
+        return fused_logits_reference(w, tokens)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"fused_gpt: no kernel for device {tokens.device}")
+    if _e2e_route(w):
+        return _e2e_kernel(w, tokens)
+    return chunked_logits(w, tokens, w.wqkv.shape[0], fused_blocks.fused_blocks)

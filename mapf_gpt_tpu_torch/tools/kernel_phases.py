@@ -1,11 +1,12 @@
 """Where the fused kernel's time goes: time it with one phase compiled out.
 
-    python3 -m mapf_gpt_tpu_torch.tools.kernel_phases [--n 8192] [--seed 0]
+    python3 -m mapf_gpt_tpu_torch.tools.kernel_phases [--model 2M] [--n 8192] [--seed 0]
 
 Builds ``csrc/fused_gpt.cu`` as it is and in variants that each leave one
 phase out (QKV products, attention, projection + MLP, the thinned last
 position), all with the same nvcc flags and started together, then times
-each on the same tokens with the trained 2M weights.  A phase's share is
+each on the same tokens with the trained weights of ``--model`` (2M or
+6M, the kernel's two widths).  A phase's share is
 the full kernel's time minus the time without it.  The variants' logits
 are wrong by construction; only their times are used.  Needs a CUDA GPU.
 """
@@ -25,17 +26,17 @@ import torch
 from mapf_gpt_tpu_torch.models.convert import load_model, load_reference_checkpoint
 from mapf_gpt_tpu_torch.ops import _build, fused_gpt
 
-CKPT = os.path.normpath(os.path.join(_build.CSRC, os.pardir, os.pardir, "checkpoints",
-                                    "MAPF-GPT-2M-r4.pt"))
+CHECKPOINTS = {
+    name: os.path.normpath(os.path.join(_build.CSRC, os.pardir, os.pardir, "checkpoints", f))
+    for name, f in (("2M", "MAPF-GPT-2M-r4.pt"), ("6M", "MAPF-GPT-6M-r5.pt"))}
 
 # phase -> (text that opens it, text that closes it) in the kernel body
 PHASES = {
-    "qkv": ("        qkv_rows(a, Wqkv,", "qkv + r0 * E3, stage);\n"),
-    "attention": ("      for (int item = warp; item < RB * H; item += WARPS)\n",
-                  "(item / H) * 16, item % H, sXN, stage, pbuf);\n"),
-    "proj_mlp": ("      for (int rb = warp; rb < RB; rb += WARPS)\n        proj_mlp_rows(",
-                 "g2 + l * E, stage, pbuf);\n"),
-    "last_position": ("        last_position(qkv,", "thin, out + (size_t)c * vocab);\n"),
+    "qkv": ("          qkv_rows(a, Wqkv,", "qkv + r0 * E3, stage);\n"),
+    "attention": ("          for (int h = 0; h < H; ++h)\n",
+                  "attention_item(qkv, r0, h, xw, stage, pbuf);\n"),
+    "proj_mlp": ("          proj_mlp_rows(r0,", "g2 + l * E, stage, pbuf);\n"),
+    "last_position": ("          last_position(qkv,", "thin, out + (size_t)c * vocab);\n"),
 }
 
 
@@ -72,6 +73,7 @@ def build_variants(out_dir: str) -> dict[str, str]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(CHECKPOINTS), default="2M")
     ap.add_argument("--n", type=int, default=8192, help="contexts per forward")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
@@ -79,7 +81,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: needs a CUDA GPU")
     libs = build_variants(str(_build.BUILD_DIR / "phases"))
-    cfg, sd = load_reference_checkpoint(CKPT)
+    cfg, sd = load_reference_checkpoint(CHECKPOINTS[args.model])
     w = fused_gpt.stack_weights(load_model(cfg, sd, device="cuda"))
     tokens = torch.from_numpy(np.random.RandomState(args.seed).randint(
         0, cfg.vocab_size, size=(args.n, cfg.block_size))).to("cuda", torch.int32)
@@ -101,7 +103,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"{smi} | N={args.n} | full kernel {full:.3f} ms")
+    print(f"{smi} | {args.model} N={args.n} | full kernel {full:.3f} ms")
     for name, t in times.items():
         print(f"  {name:14s} {full - t:8.3f} ms  {100 * (full - t) / full:5.1f} %  "
               f"(kernel without it {t:.3f} ms)")
