@@ -37,6 +37,38 @@ each (flushed):
    ``blocks_reference`` (stream within atol 0.02 * max|ref|); a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
    counter 0; timing at 2048 contexts (the JAX harness's 85M cap).
+8. Widths built on demand: three widths no published model has, random
+   weights from ``init_params``, 64 contexts each against
+   ``fused_logits_reference`` with phase 3's tolerances: E=192/6 heads/4
+   layers (e2e route, the e2e kernel built with -D defines), E=384/6/8
+   (e2e route on the layer-stack kernel) and E=512/8/12 (chunked route);
+   each kernel's counter exactly one.
+9. Training kernels (``csrc/fused_train.cu``) against their plain versions
+   on the reset batch's tokens: the trained 2M on 512 contexts (two groups
+   of 256) and the 6M on 300 (a group of 256 and one of 44), at full width
+   and depth (forward over all layers: ``out`` and ``xsave`` within
+   0.02 * max|ref| + 0.02, the max taken per channel and, for ``xsave``,
+   per save, so that the residual stream's outlier channels set no other
+   channel's tolerance; backward in 2-layer chunks: dx and the six
+   gradients each within 0.08 * max|ref| + 1e-4, the tolerances of
+   ``tests/test_fused_gpt.py`` and ``tests/test_fused_gpt_train.py``), and
+   the 85M's width (E=768, 12 heads) on a 2-layer forward and a 1-layer
+   backward chunk; a second backward launch must equal the first bit for
+   bit.
+10. The trainer through its entry point: ``train.loop.train`` with
+   ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
+   eval every 10, on shards written here with ``write_arrow_shard``: the
+   tokens the tokenizer makes on the reset instances stepped with the
+   trained 6M's argmax actions, and those actions as targets.  The
+   training kernels' counters, set to 0 just before, must read one forward
+   per micro-batch and four backward chunks per micro-batch; every loss
+   finite; the last logged loss below the first by ``LOSS_DROP``; the
+   newest checkpoint loads with ``load_reference_checkpoint`` and drives
+   one rollout step through the e2e kernel.
+11. Training timing: one forward + backward of the 6M at the reference
+   micro-batch of 2048 contexts, the kernels alone and the whole
+   ``fused_loss_fn`` + backward, beside the plain versions and the bound;
+   the trainer's it/s and MFU.
 
 Then the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
@@ -50,6 +82,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -63,10 +96,15 @@ from mapf_gpt_tpu_torch.envs import env as menv  # noqa: E402
 from mapf_gpt_tpu_torch.maps import random_grid, sample_instance  # noqa: E402
 from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
                                                load_reference_checkpoint)
-from mapf_gpt_tpu_torch.models.gpt import CONFIGS, init_params  # noqa: E402
+from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPTConfig, act,  # noqa: E402
+                                           init_params, make_forward)
 from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
+from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt  # noqa: E402
 from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
                                                  batch_reset, make_batch_rollout)
+from mapf_gpt_tpu_torch.train import loop as train_loop  # noqa: E402
+from mapf_gpt_tpu_torch.train.data import write_arrow_shard  # noqa: E402
+from mapf_gpt_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
 CKPT = os.path.join(ROOT, "checkpoints", "MAPF-GPT-2M-r4.pt")
 CKPT_6M = os.path.join(ROOT, "checkpoints", "MAPF-GPT-6M-r5.pt")
@@ -75,6 +113,16 @@ B_85M, STEPS_85M = 4, 32         # 128 contexts a step
 N_TIME = 8192                    # 256 envs x 32 agents
 N_TIME_85M = 2048                # the JAX harness's 85M context cap
 PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
+WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12))     # (n_embd, heads, layers) built on demand
+N_WIDTHS = 64                    # contexts of each width's compare
+# contexts of the training kernels' compares: the kernels run groups of
+# fgt.GROUP = 256, so the 2M's two full groups and the 6M's 256 + 44 check the
+# group offsets, the gradients summed across groups and a partial group
+N_TRAIN_CMP = {"2M": 512, "6M": 300, "85M": 64}
+N_TRAIN_TIME = 2048              # the 6M's reference micro-batch
+TRAIN_PLAIN_CHUNK = 256          # contexts per plain training-version call
+TRAIN_ITERS, TRAIN_BATCH, TRAIN_ACCUM = 20, 256, 2
+LOSS_DROP = 0.5                  # the trainer's last logged loss must be this far below its first
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -153,15 +201,15 @@ def blocks_bound(n: int, stacks: fused_blocks.LayerStacks, t: int,
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, floor: float,
-                argmax: bool) -> float:
-    """got vs ref within atol 0.02 * max|ref| + floor (and >= 95 % argmax
+                argmax: bool, rel: float = 0.02) -> float:
+    """got vs ref within atol rel * max|ref| + floor (and >= 95 % argmax
     agreement over the 5 action logits); returns max |got - ref|."""
     if got.shape != ref.shape or not torch.isfinite(got.float()).all():
         raise RuntimeError(f"{name}: kernel output {tuple(got.shape)} not finite or "
                            f"not of shape {tuple(ref.shape)}")
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    tol = 0.02 * scale + floor
+    tol = rel * scale + floor
     msg = f"[compare] {name}: n={got.shape[0]} max|err|={err:.5f} tol={tol:.5f} " \
           f"(max|ref|={scale:.3f})"
     agree = 1.0
@@ -172,6 +220,30 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, floor: float,
     if err > tol or agree < 0.95:
         raise RuntimeError(f"{name}: kernel disagrees with the plain version")
     return err
+
+
+def check_close_channels(name: str, got: torch.Tensor, ref: torch.Tensor, lead: int,
+                         rel: float = 0.02, floor: float = 0.02) -> float:
+    """got vs ref within atol rel * max|ref| + floor, the max taken per
+    channel (the last dim) and per index of the first `lead` dims, over the
+    dims between; returns max |got - ref|."""
+    if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name}: kernel output {tuple(got.shape)} not finite or "
+                           f"not of shape {tuple(ref.shape)}")
+    parts = int(np.prod(ref.shape[:lead]))
+    diff = (got.float() - ref.float()).reshape(parts, -1, ref.shape[-1])
+    err = diff.abs().amax(1)
+    scale = ref.float().reshape(parts, -1, ref.shape[-1]).abs().amax(1)
+    tol = rel * scale + floor
+    worst = (err / tol).max().item()
+    rms = (diff.square().mean() / ref.float().square().mean()).sqrt().item()
+    log(f"[compare] {name}: n={got.shape[lead]} max|err|={err.max().item():.5f} "
+        f"per-channel tol {tol.min().item():.5f}..{tol.max().item():.5f} "
+        f"(median {tol.median().item():.5f}), worst err/tol={worst:.4f}, "
+        f"relative rms err={rms:.2e}")
+    if worst > 1.0:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return err.max().item()
 
 
 def compare(name: str, w, tokens: torch.Tensor) -> float:
@@ -323,6 +395,283 @@ def blocks_model(seed: int, dev) -> dict:
             "n_contexts": N_TIME_85M}
 
 
+def widths_phase(seed: int, dev) -> None:
+    """Three widths no published model has, each on the kernel cuda_plan
+    names, against the plain version; that kernel's counter exactly one."""
+    for e, h, layers in WIDTHS:
+        cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
+        model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e)),
+                           device=dev)
+        w = fused_gpt.stack_weights(model)
+        route, kernel = fused_gpt.cuda_plan(e, h, layers)
+        tokens = random_tokens(seed + e, N_WIDTHS, cfg, dev)
+        fused_gpt.launches = fused_blocks.launches = 0
+        check_close(f"width E={e} H={h} L={layers} ({route} route, {kernel})",
+                    fused_gpt.fused_logits(w, tokens), fused_gpt.fused_logits_reference(w, tokens),
+                    floor=0.02, argmax=True)
+        got = (fused_gpt.launches, fused_blocks.launches)
+        want = (1, 0) if kernel == "fused_gpt" else (0, 1)
+        if got != want:
+            raise RuntimeError(f"width {e}: launches (e2e, blocks) {got}, expected {want}")
+
+
+def train_stacks(model) -> fgt.TrainStacks:
+    """The model's training stacks, detached (the kernels alone)."""
+    st = fgt.build_train_stacks(model)
+    return fgt.TrainStacks(*(t.detach() for t in st[:6]), n_head=st.n_head)
+
+
+def embed(model, tokens: torch.Tensor) -> torch.Tensor:
+    """The trainer's embedding: bf16(wte[tokens] + wpe), fp32 tables."""
+    tr = model.transformer
+    with torch.no_grad():
+        return (tr.wte.weight[tokens.long()] + tr.wpe.weight[:tokens.shape[1]]).to(torch.bfloat16)
+
+
+def top_gradient(model, out: torch.Tensor, seed: int) -> torch.Tensor:
+    """The loss's gradient at the last position, as the trainer's backward
+    receives it: bf16 [N, T, E], zero but at position T-1, for random
+    targets in 0..4."""
+    n, e = out.shape
+    targets = torch.from_numpy(np.random.RandomState(seed).randint(0, 5, n)).to(out.device)
+    xl = out.float().requires_grad_()
+    tr = model.transformer
+    logits = fused_blocks.ln_f32(xl, tr.ln_f.weight.detach()) @ tr.wte.weight.detach().T
+    (dxl,) = torch.autograd.grad(torch.nn.functional.cross_entropy(logits, targets), xl)
+    dx = torch.zeros((n, model.cfg.block_size, e), dtype=torch.bfloat16, device=out.device)
+    dx[:, -1] = dxl.to(torch.bfloat16)
+    return dx
+
+
+GRAD_NAMES = ("dx", "dwqkv", "dwproj", "dwfc", "dwfc2", "dg1", "dg2")
+
+
+def compare_backward(label: str, xsave, dxin, stacks) -> tuple[float, torch.Tensor]:
+    """One backward chunk, kernel vs plain version, and the kernel twice:
+    the second launch must equal the first bit for bit.  Returns (max
+    |err|, the kernel's dx)."""
+    got = fgt.train_backward(xsave, dxin, stacks)
+    again = fgt.train_backward(xsave, dxin, stacks)
+    torch.cuda.synchronize()
+    ref = fgt.train_bwd_reference(xsave, dxin, stacks)
+    err = max(check_close(f"{label} {name}", a, b, floor=1e-4, argmax=False, rel=0.08)
+              for name, a, b in zip(GRAD_NAMES, (got[0], *got[1]), (ref[0], *ref[1])))
+    if not all(torch.equal(a, b) for a, b in zip((got[0], *got[1]), (again[0], *again[1]))):
+        raise RuntimeError(f"{label}: a second backward launch differs from the first")
+    log(f"[compare] {label}: a second launch equals the first bit for bit")
+    return err, got[0]
+
+
+def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
+    """The training kernels against their plain versions: the 2M and 6M at
+    full width and depth, the 85M's width on one chunk each way.  Returns
+    the max |err| of the forward and of the backward."""
+    fwd_err = bwd_err = 0.0
+    for label, model in models.items():
+        n = N_TRAIN_CMP[label]
+        stacks = train_stacks(model)
+        layers = stacks.wqkv.shape[0]
+        _, _, real = reset_batch(seed, B, STEPS, dev)
+        x = embed(model, real[:n])
+        out, xsave = fgt.train_forward(x, stacks, last_only=True)
+        torch.cuda.synchronize()
+        ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, True)
+        fwd_err = max(fwd_err,
+                      check_close_channels(f"{label} train forward out", out, ref_out, 0),
+                      check_close_channels(f"{label} train forward xsave", xsave, ref_xsave, 1))
+        dx = top_gradient(model, out, seed)
+        for lo in reversed(range(0, layers, 2)):
+            hi = min(lo + 2, layers)
+            err, dx = compare_backward(f"{label} train backward layers {lo}-{hi - 1}",
+                                       xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
+            bwd_err = max(bwd_err, err)
+
+    # the 85M's width: a 2-layer forward chunk mid-stack, a 1-layer backward chunk
+    cfg = CONFIGS["85M"]
+    model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed)), device=dev)
+    stacks = train_stacks(model).chunk(0, 2)
+    _, _, real = reset_batch(seed, B_85M, STEPS_85M, dev)
+    x = embed(model, real[:N_TRAIN_CMP["85M"]])
+    out, xsave = fgt.train_forward(x, stacks, last_only=False)
+    torch.cuda.synchronize()
+    ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
+    fwd_err = max(fwd_err,
+                  check_close_channels("85M width train forward 2 layers, stream", out, ref_out,
+                                       0),
+                  check_close_channels("85M width train forward xsave", xsave, ref_xsave, 1))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dxin = (torch.randn(out.shape, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    err, _ = compare_backward("85M width train backward layer 1", xsave[2:4].contiguous(), dxin,
+                              stacks.chunk(1, 2))
+    return fwd_err, max(bwd_err, err)
+
+
+def distill_shard(path: str, model, seed: int, b: int, steps: int, dev) -> int:
+    """Write a shard of the tokenizer's contexts on reset instances stepped
+    with `model`'s argmax actions, the actions as targets.  Returns its
+    contexts."""
+    spec, states, _ = reset_batch(seed, b, steps, dev)
+    forward = make_forward(model)
+    tokens, actions = [], []
+    for _ in range(steps):
+        tok = _tokens_of(states).reshape(b * A, -1)
+        a = act(forward(tok), do_sample=False)
+        tokens.append(tok.cpu())
+        actions.append(a.cpu())
+        states = menv.step(spec, states, a.reshape(b, A))
+    write_arrow_shard(path, torch.cat(tokens).numpy().astype(np.int8),
+                      torch.cat(actions).numpy().astype(np.int8))
+    return b * A * steps
+
+
+def trainer_phase(teacher, seed: int, dev) -> dict:
+    """The 6M trainer through train.loop.train on shards made here, the
+    training kernels' counters set to 0 just before and read just after;
+    then the newest checkpoint drives one rollout step."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        for name, s, steps in (("train", seed + 100, 8), ("valid", seed + 200, 4)):
+            os.makedirs(os.path.join(tmp, name))
+            n = distill_shard(os.path.join(tmp, name, "chunk_0_part_0.arrow"), teacher, s, B,
+                              steps, dev)
+            log(f"[trainer] {name} shard: {n} contexts")
+        out_dir = os.path.join(tmp, "out")
+        args = train_loop.parse_args([
+            "--model", "6M", "--device", str(dev), "--train-data", os.path.join(tmp, "train"),
+            "--valid-data", os.path.join(tmp, "valid"), "--out-dir", out_dir,
+            "--batch-size", str(TRAIN_BATCH), "--grad-accum", str(TRAIN_ACCUM),
+            "--max-iters", str(TRAIN_ITERS), "--eval-interval", "10", "--eval-iters", "4",
+            "--log-interval", "5", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        fgt.fwd_launches = fgt.bwd_launches = 0
+        fused_gpt.launches = fused_blocks.launches = 0
+        t0 = time.perf_counter()
+        result = train_loop.train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (fgt.fwd_launches, fgt.bwd_launches)
+        micro = TRAIN_ITERS * TRAIN_ACCUM
+        bwd_per_micro = -(-CONFIGS["6M"].n_layer // fgt._bwd_layers_per_call(CONFIGS["6M"]))
+        log(f"[trainer] 6M {TRAIN_ITERS} iterations x {TRAIN_ACCUM} micro-batches of "
+            f"{TRAIN_BATCH}: {wall:.2f} s, launches forward {launches[0]} backward "
+            f"{launches[1]} (inference kernels {fused_gpt.launches}, {fused_blocks.launches})")
+        if launches != (micro, micro * bwd_per_micro):
+            raise RuntimeError(f"trainer: training kernel launches {launches}, expected "
+                               f"{(micro, micro * bwd_per_micro)}")
+        losses = [h["loss"] for h in result["history"]]
+        evals = [(e["val_loss"], e["val_acc"]) for e in result["evals"]]
+        log(f"[trainer] losses {losses}; evals (val_loss, val_acc) {evals}")
+        if not all(np.isfinite(v) for v in losses + [x for e in evals for x in e]):
+            raise RuntimeError("trainer: a loss is not finite")
+        if not losses[-1] < losses[0] - LOSS_DROP:
+            raise RuntimeError(f"trainer: last loss {losses[-1]:.4f} is not {LOSS_DROP} below "
+                               f"the first {losses[0]:.4f}")
+        meter = result["meter"]
+        its = meter.smoothed or 0.0
+        mfu = its * meter.flops_per_step / meter.peak_flops if meter.peak_flops else None
+        mfu_text = "not measured" if mfu is None else f"{100 * mfu:.3f} %"
+        log(f"[trainer] {its:.3f} it/s, MFU {mfu_text} against {meter.peak_flops} FLOP/s "
+            f"(the trainer's meter); {micro * TRAIN_BATCH / wall:.1f} contexts/s over the run")
+
+        step = ckpt.latest_step(out_dir)
+        cfg, sd = load_reference_checkpoint(ckpt.checkpoint_path(out_dir, step))
+        spec, states, _ = reset_batch(seed, B, 1, dev)
+        rollout(f"6M trained here (iter {step})", spec, load_model(cfg, sd, device=dev), states,
+                B, 1, e2e=1, blocks=0)
+    return {"launches": launches, "it_per_s": its, "mfu": mfu,
+            "losses": losses, "wall_s": wall}
+
+
+def train_ops(t: int, e: int, h: int, layers: int, last_only: bool, backward: bool
+              ) -> tuple[int, int]:
+    """(bf16 product FLOP, exp count) of a training chunk on one context.
+
+    Forward, a layer: q|k|v 6TE^2, scores and P@V 4T^2E, projection 2TE^2,
+    MLP 16TE^2 (for the last row alone in a last_only chunk's final layer).
+    Backward, a layer (recompute included): q|k|v, attention and fc
+    recomputed 14TE^2 + 4T^2E, dX and dW of the five products 48TE^2, the
+    four attention-backward products 8T^2E.  One exp per score a layer."""
+    if backward:
+        return layers * (62 * t * e * e + 12 * t * t * e), layers * h * t * t
+    attn = 8 * t * e * e + 4 * t * t * e
+    ops = layers * (attn + 16 * t * e * e)
+    if last_only:
+        ops -= 16 * t * e * e - 16 * e * e
+    return ops, layers * h * t * t
+
+
+def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
+                 trainer: dict) -> list[dict]:
+    """One forward + backward of the 6M at N_TRAIN_TIME contexts: the
+    kernels alone, the whole fused loss + backward, the plain versions."""
+    cfg = model.cfg
+    stacks = train_stacks(model)
+    layers, e, _ = stacks.wqkv.shape
+    t, h = cfg.block_size, cfg.n_head
+    blpc = fgt._bwd_layers_per_call(cfg)
+    _, _, real = reset_batch(seed, B, STEPS, dev)
+    tokens = real.repeat(N_TRAIN_TIME // real.shape[0], 1)
+    x = embed(model, tokens)
+    out, xsave = fgt.train_forward(x, stacks, last_only=True)
+    dxin = top_gradient(model, out, seed)
+    chunks = [(lo, min(lo + blpc, layers)) for lo in reversed(range(0, layers, blpc))]
+
+    def backward():
+        dx = dxin
+        for lo, hi in chunks:
+            dx, _ = fgt.train_backward(xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
+
+    def plain_forward():
+        for c in x.split(TRAIN_PLAIN_CHUNK):
+            fgt.train_fwd_reference(c, stacks, True)
+
+    def plain_backward():
+        for c0 in range(0, x.shape[0], TRAIN_PLAIN_CHUNK):
+            dx = dxin[c0:c0 + TRAIN_PLAIN_CHUNK]
+            for lo, hi in chunks:
+                dx, _ = fgt.train_bwd_reference(
+                    xsave[2 * lo:2 * hi, c0:c0 + TRAIN_PLAIN_CHUNK], dx, stacks.chunk(lo, hi))
+
+    targets = torch.from_numpy(np.random.RandomState(seed).randint(0, 5, tokens.shape[0])).to(dev)
+
+    def whole():
+        model.zero_grad(set_to_none=True)
+        fgt.fused_loss_fn(model, tokens, targets).backward()
+
+    fwd_ms = cuda_ms(lambda: fgt.train_forward(x, stacks, last_only=True), reps=3)
+    bwd_ms = cuda_ms(backward, reps=3)
+    whole_ms = cuda_ms(whole, reps=3)
+    plain_fwd_ms = cuda_ms(plain_forward, reps=1)
+    plain_bwd_ms = cuda_ms(plain_backward, reps=1)
+    n = N_TRAIN_TIME
+    weights = nbytes(*stacks[:6])
+    stream = n * t * e * 2
+    ops, exps = train_ops(t, e, h, layers, True, False)
+    fwd_bound, fwd_by = bound(n * ops, n * exps, stream + 2 * layers * stream + n * e * 2 + weights)
+    ops, exps = train_ops(t, e, h, layers, True, True)
+    grads = sum(4 * g.numel() for g in stacks[:6])
+    # xsave read once, the top gradient and the chunks' dx in and out, weights, fp32 grads
+    bwd_bytes = 2 * layers * stream + 2 * len(chunks) * stream + weights + grads
+    bwd_bound, bwd_by = bound(n * ops, n * exps, bwd_bytes)
+    log(f"[timing] 6M train N={n}: forward kernel {fwd_ms:.3f} ms (plain {plain_fwd_ms:.3f} ms, "
+        f"bound {fwd_bound:.3f} ms {fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); "
+        f"backward kernels {bwd_ms:.3f} ms in {len(chunks)} calls (plain {plain_bwd_ms:.3f} ms, "
+        f"bound {bwd_bound:.3f} ms {bwd_by}, {100 * bwd_bound / bwd_ms:.2f} % of bound); "
+        f"fused_loss_fn + backward {whole_ms:.3f} ms (bound of both {fwd_bound + bwd_bound:.3f} ms)")
+    common = {"model": "6M", "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/fused_train.cu",
+              "library_ms": None, "n_contexts": n}
+    return [
+        {"name": "fused_train_fwd", **common,
+         "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:98", "launches": trainer["launches"][0],
+         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "whole_loss_and_backward_ms": whole_ms},
+        {"name": "fused_train_bwd", **common,
+         "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:133",
+         "launches": trainer["launches"][1], "max_abs_err": bwd_err, "ms": bwd_ms,
+         "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "calls": len(chunks)},
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -331,6 +680,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    sys.stdout.reconfigure(line_buffering=True)   # the trainer's own lines in order
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full fp32
@@ -341,12 +691,18 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: every source, and the widths of phase 8, one nvcc each, together
     sources = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
+    jobs = [(name, None) for name in sources]
+    for e, h, layers in WIDTHS:
+        kernel = fused_gpt.cuda_plan(e, h, layers)[1]
+        jobs.append((kernel, fused_gpt.e2e_defines(e, h) if kernel == "fused_gpt"
+                     else fused_blocks.kernel_defines(e, h)))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(_build.build, sources))
-    log(f"[build] {sources} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _build.build(*job), jobs))
+    log(f"[build] {sources} and {len(jobs) - len(sources)} widths in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -356,10 +712,20 @@ def main() -> int:
 
     # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
-    entries = [e2e_model("2M", load_model(cfg, sd, device=dev), args.seed, dev)]
+    model_2m = load_model(cfg, sd, device=dev)
+    entries = [e2e_model("2M", model_2m, args.seed, dev)]
     cfg, sd = load_reference_checkpoint(CKPT_6M)
-    entries.append(e2e_model("6M", load_model(cfg, sd, device=dev), args.seed, dev))
+    model_6m = load_model(cfg, sd, device=dev)
+    entries.append(e2e_model("6M", model_6m, args.seed, dev))
     entries.append(blocks_model(args.seed, dev))
+    log(f"[done] inference phases {time.perf_counter() - t_start:.1f} s")
+
+    # 8. widths built on demand; 9. training kernels; 10. the trainer; 11. timing
+    widths_phase(args.seed, dev)
+    fwd_err, bwd_err = train_kernels_phase({"2M": model_2m, "6M": model_6m}, args.seed, dev)
+    trainer = trainer_phase(model_6m, args.seed, dev)
+    entries += train_timing(model_6m.train().requires_grad_(), args.seed, dev, fwd_err, bwd_err,
+                            trainer)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     log(nvidia_smi_line())

@@ -1,6 +1,9 @@
-// GPT layer stack for Hopper (sm_90a) at the 85M's width: bf16 x [N, 256, 768]
-// through a chunk of layers -> bf16 [N, 256, 768], or [N, 1, 768] (the last
-// position) with the chunk's final layer thinned.
+// GPT layer stack for Hopper (sm_90a): bf16 x [N, 256, E] through a chunk of
+// layers -> bf16 [N, 256, E], or [N, 1, E] (the last position) with the
+// chunk's final layer thinned.  Built with no defines for the 85M's width
+// (E=768, head dim 64, 12 heads); -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh>
+// build another width (E a multiple of 128, head dim 32 or 64; the static
+// asserts below, which ops/fused_blocks.py checks before it starts nvcc).
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/fused_gpt.py::_block_kernel and
 // computes what it computes, per layer:
@@ -63,10 +66,17 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
+#ifndef FUSED_BLOCKS_E
+#define FUSED_BLOCKS_E 768       // n_embd of the 85M
+#endif
+#ifndef FUSED_BLOCKS_DH
+#define FUSED_BLOCKS_DH 64       // its head dim
+#endif
+
 constexpr int T = 256;           // context length
-constexpr int E = 768;           // n_embd of the 85M
-constexpr int DH = 64;           // head dim
-constexpr int H = E / DH;        // 12 heads
+constexpr int E = FUSED_BLOCKS_E;
+constexpr int DH = FUSED_BLOCKS_DH;
+constexpr int H = E / DH;        // heads (12 for the 85M)
 constexpr int E3 = 3 * E;        // q|k|v width
 constexpr int F = 4 * E;         // MLP hidden width
 constexpr float EXP2_CLAMP = 100.f;
@@ -80,7 +90,11 @@ constexpr int LDA_S = BK + 8;             // padded shared-memory rows
 constexpr int LDB_S = BN + 8;
 static_assert(E % BN == 0 && E3 % BN == 0 && F % BN == 0, "N tiles");
 static_assert(E % BK == 0 && F % BK == 0, "K tiles");
-static_assert(E % 256 == 0, "LN: 8 values a lane per 256 columns");
+static_assert(E % 128 == 0, "LN: 8 values a lane per 256 columns, the last 256 maybe half");
+static_assert(DH == 32 || DH == 64, "head dim 32 or 64");
+static_assert(E % DH == 0, "whole heads");
+constexpr int LN_J = (E + 255) / 256;    // 8-value chunks a lane holds in the LN prologue
+static_assert((E + H * T + H) * 4 <= 48 * 1024, "thin attention: static shared memory");
 
 // attention tiles
 constexpr int ATT_WARPS = 8;
@@ -191,23 +205,29 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
       float mu = 0.f, rs = 0.f;
       if (m0 + r < M) {
         const bf16* row = A + (size_t)(m0 + r) * lda;
-        float v[E / 256][8];
+        float v[LN_J][8];
         float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < E / 256; ++j) {
-          load8(row + (lane + 32 * j) * 8, v[j]);
+        for (int j = 0; j < LN_J; ++j) {
+          const bool in = (lane + 32 * j) * 8 < E;
+          if (in) load8(row + (lane + 32 * j) * 8, v[j]);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) s += v[j][i];
+          for (int i = 0; i < 8; ++i) {
+            if (!in) v[j][i] = 0.f;
+            s += v[j][i];
+          }
         }
         mu = warp_sum(s) * (1.f / E);
         float q = 0.f;
 #pragma unroll
-        for (int j = 0; j < E / 256; ++j)
+        for (int j = 0; j < LN_J; ++j) {
+          if ((lane + 32 * j) * 8 >= E) continue;
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float d = v[j][i] - mu;
             q += d * d;
           }
+        }
         rs = rsqrtf(warp_sum(q) * (1.f / E) + LN_EPS);
       }
       if (lane == 0) {

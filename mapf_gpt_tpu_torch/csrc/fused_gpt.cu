@@ -1,6 +1,9 @@
 // Fused GPT forward for Hopper (sm_90a): tokens [N, 256] -> last-position
-// logits [N, vocab] in one launch, built for the 2M (E=160, 5 heads) and the
-// 6M (E=256, 8 heads); both have head dim 32.
+// logits [N, vocab] in one launch.  Built with no defines for the 2M (E=160,
+// 5 heads) and the 6M (E=256, 8 heads); both have head dim 32.  Built with
+// -DFUSED_GPT_E=<E> -DFUSED_GPT_H=<heads> -DFUSED_GPT_CH=<chunk> for that one
+// width instead (ops/fused_gpt.py picks CH and checks the static_asserts of
+// Fwd before it starts nvcc).
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/fused_gpt.py::_e2e_kernel and
 // computes what it computes:
@@ -521,8 +524,12 @@ struct Fwd {
   }
 };
 
-using Fwd2M = Fwd<160, 5, 128>;
-using Fwd6M = Fwd<256, 8, 64>;
+#ifdef FUSED_GPT_E
+using FwdA = Fwd<FUSED_GPT_E, FUSED_GPT_H, FUSED_GPT_CH>;   // the width asked for
+#else
+using FwdA = Fwd<160, 5, 128>;   // 2M
+using FwdB = Fwd<256, 8, 64>;    // 6M
+#endif
 
 template <class S>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -569,11 +576,11 @@ extern "C" {
 // Shape constants of the i-th width the library was built for, for the
 // wrapper's checks; returns 1 when there is no i-th width.
 int fused_gpt_config(int i, int* t, int* e, int* h, int* max_vocab, int* smem_bytes) {
-  switch (i) {
-    case 0: return config_of<Fwd2M>(t, e, h, max_vocab, smem_bytes);
-    case 1: return config_of<Fwd6M>(t, e, h, max_vocab, smem_bytes);
-    default: return 1;
-  }
+  if (i == 0) return config_of<FwdA>(t, e, h, max_vocab, smem_bytes);
+#ifndef FUSED_GPT_E
+  if (i == 1) return config_of<FwdB>(t, e, h, max_vocab, smem_bytes);
+#endif
+  return 1;
 }
 
 // Launches the forward of width e with h heads on `stream`; returns the CUDA
@@ -584,12 +591,14 @@ int fused_gpt_forward(int e, int h, const int* tokens, const bf16* wte, const bf
                       const bf16* wfc2, const float* g1, const float* g2, const float* gf,
                       float* out, bf16* workspace, int n, int layers, int vocab, int grid,
                       cudaStream_t stream) {
-  if (e == Fwd2M::E && h == Fwd2M::H)
-    return launch<Fwd2M>(tokens, wte, wpe, wht, wqkv, wproj, wfc, wfc2, g1, g2, gf, out,
-                         workspace, n, layers, vocab, grid, stream);
-  if (e == Fwd6M::E && h == Fwd6M::H)
-    return launch<Fwd6M>(tokens, wte, wpe, wht, wqkv, wproj, wfc, wfc2, g1, g2, gf, out,
-                         workspace, n, layers, vocab, grid, stream);
+  if (e == FwdA::E && h == FwdA::H)
+    return launch<FwdA>(tokens, wte, wpe, wht, wqkv, wproj, wfc, wfc2, g1, g2, gf, out,
+                        workspace, n, layers, vocab, grid, stream);
+#ifndef FUSED_GPT_E
+  if (e == FwdB::E && h == FwdB::H)
+    return launch<FwdB>(tokens, wte, wpe, wht, wqkv, wproj, wfc, wfc2, g1, g2, gf, out,
+                        workspace, n, layers, vocab, grid, stream);
+#endif
   return (int)cudaErrorInvalidValue;
 }
 

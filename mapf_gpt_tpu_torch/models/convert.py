@@ -4,9 +4,13 @@
   dict of numpy arrays, with or without the top ``"params"`` level) and
   returns the port's state dict in the reference key layout (the inverse of
   ``mapf_gpt_tpu/models/convert.py::torch_state_dict_to_params``).
+- :func:`state_dict_to_params` is its inverse: a state dict (or a model's
+  gradients, :func:`grads_to_params`) -> the flax layout as numpy arrays,
+  under a top ``"params"`` level, so port and JAX trees compare key by key.
 - :func:`load_reference_checkpoint` reads a reference-layout ``.pt``
   (``{"model": state_dict, "model_args": {...}, ...}``) with torch alone.
-- :func:`load_model` builds the :class:`GPT` from either on a device.
+- :func:`load_model` builds the :class:`GPT` from either on a device, for
+  inference (frozen parameters).
 
 Torch ``nn.Linear`` stores [out, in]; flax Dense kernels are [in, out],
 hence the transposes.  A ``_orig_mod.`` prefix from torch.compile
@@ -46,6 +50,32 @@ def params_to_state_dict(params: dict, cfg: GPTConfig) -> dict[str, torch.Tensor
     return sd
 
 
+def state_dict_to_params(sd: dict, cfg: GPTConfig) -> dict:
+    """Reference-layout state dict -> ``{"params": flax params}`` of fp32
+    numpy arrays (the inverse of :func:`params_to_state_dict`)."""
+    sd = strip_prefix(sd)
+    a = lambda k: sd[k].detach().float().cpu().numpy()
+    p = {"wte": a("transformer.wte.weight"), "wpe": a("transformer.wpe.weight"),
+         "ln_f": {"scale": a("transformer.ln_f.weight")}}
+    for i in range(cfg.n_layer):
+        t = f"transformer.h.{i}"
+        b = {"ln_1": {"scale": a(f"{t}.ln_1.weight")}, "ln_2": {"scale": a(f"{t}.ln_2.weight")},
+             "attn": {}, "mlp": {}}
+        for mod, sub in (("attn", "c_attn"), ("attn", "c_proj"),
+                         ("mlp", "c_fc"), ("mlp", "c_proj")):
+            b[mod][sub] = {"kernel": np.ascontiguousarray(a(f"{t}.{mod}.{sub}.weight").T)}
+        p[f"h_{i}"] = b
+    return {"params": p}
+
+
+def grads_to_params(model: GPT) -> dict:
+    """A model's parameter gradients in the flax layout (the tied head's
+    gradient is the token embedding's, counted once)."""
+    sd = {name: p.grad for name, p in model.named_parameters()}
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return state_dict_to_params(sd, model.cfg)
+
+
 def load_reference_checkpoint(path: str) -> tuple[GPTConfig, dict[str, torch.Tensor]]:
     """Read a reference ``.pt`` -> (GPTConfig, fp32 state dict on the CPU)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
@@ -61,7 +91,8 @@ def load_reference_checkpoint(path: str) -> tuple[GPTConfig, dict[str, torch.Ten
 
 
 def load_model(cfg: GPTConfig, state_dict: dict, device: str | torch.device = "cuda") -> GPT:
-    """A GPT with these weights on `device`, in eval mode."""
+    """A GPT with these weights on `device` for inference: in eval mode,
+    its parameters frozen (``requires_grad_()`` makes them trainable)."""
     model = GPT(cfg)
     model.load_state_dict(state_dict, strict=True)
-    return model.to(device).eval()
+    return model.to(device).eval().requires_grad_(False)

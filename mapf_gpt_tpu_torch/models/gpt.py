@@ -33,7 +33,10 @@ class GPTConfig:
     n_layer: int = 8
     n_head: int = 8
     n_embd: int = 256
+    dropout: float = 0.0
+    bias: bool = False
     dtype: torch.dtype = torch.bfloat16   # activation/compute dtype
+    attn_impl: str = "auto"               # "auto" | "einsum": the plain attention below
 
 
 CONFIGS = {
@@ -106,6 +109,12 @@ class Block(nn.Module):
 class GPT(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
+        if cfg.bias or cfg.dropout > 0.0:
+            raise NotImplementedError("GPT: bias=True and dropout > 0 are not ported yet")
+        if cfg.attn_impl not in ("auto", "einsum"):
+            # "pallas" is the JAX package's standalone attention kernel
+            raise NotImplementedError(f"GPT: attn_impl={cfg.attn_impl!r} is not ported; "
+                                      "'auto' and 'einsum' run the plain attention")
         self.cfg = cfg
         self.transformer = nn.ModuleDict(dict(
             wte=nn.Embedding(cfg.vocab_size, cfg.n_embd),
@@ -116,17 +125,25 @@ class GPT(nn.Module):
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.transformer.wte.weight   # weight tying
 
-    @torch.no_grad()
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, idx: torch.Tensor, last_only: bool = True) -> torch.Tensor:
         """idx: int [B, T] tokens -> fp32 logits [B, vocab] at the last
-        position (inference and the training loss only read that one)."""
+        position (inference and the training loss only read that one), or
+        [B, T, vocab] when not last_only."""
         tr = self.transformer
         t = idx.shape[1]
         x = (tr.wte(idx.long()) + tr.wpe.weight[:t]).to(self.cfg.dtype)
         for block in tr.h:
             x = block(x)
-        x = tr.ln_f(x[:, -1, :])
+        x = tr.ln_f(x[:, -1, :] if last_only else x)
         return x.float() @ tr.wte.weight.float().T
+
+    def num_params(self, non_embedding: bool = True) -> int:
+        """Parameters (the tied head counted once), less the position
+        embedding when non_embedding, as the JAX ``GPT.num_params``."""
+        n = sum(p.numel() for p in self.parameters())
+        if non_embedding:
+            n -= self.transformer.wpe.weight.numel()
+        return n
 
 
 def make_forward(model: GPT):
@@ -135,15 +152,23 @@ def make_forward(model: GPT):
 
     With the model on CUDA this runs the hand-written kernels through
     ``ops/fused_gpt.fused_logits`` on weights stacked once here: the e2e
-    kernel for the 2M and 6M, the layer-stack kernel for the 85M; a width
-    neither is built for raises.  On the CPU it runs the module itself (erf
-    GELU), as the JAX package runs the flax module there."""
+    kernel for the 2M and 6M, the layer-stack kernel for the 85M, each
+    built for the model's width on first use; a width neither can hold
+    raises.  On the CPU it runs the module itself (erf GELU), as the JAX
+    package runs the flax module there.  No autograd graph is built."""
     if model.lm_head.weight.device.type == "cuda":
         from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, stack_weights
 
         weights = stack_weights(model)
-        return lambda tokens: fused_logits(weights, tokens)
-    return lambda tokens: model(tokens)
+        forward = lambda tokens: fused_logits(weights, tokens)
+    else:
+        forward = model
+
+    def run(tokens: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return forward(tokens)
+
+    return run
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:

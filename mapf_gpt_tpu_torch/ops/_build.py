@@ -4,9 +4,11 @@ library, loaded with ``ctypes``.
 Each source ``csrc/<name>.cu`` exports ``extern "C"`` functions and includes
 no PyTorch header, so a build takes seconds.  The library goes to
 ``csrc/build/lib<name>-<hash>.so`` (listed in ``.gitignore``), keyed by a
-hash of the source and the flags: a second load in the same process, or in
-a later process on the same checkout, does not rebuild.  A missing ``nvcc``
-or a failed build raises with the compiler's output.
+hash of the source, the flags and the ``-D`` defines a caller passes (a
+kernel built for one width is a library of its own): a second load in the
+same process, or in a later process on the same checkout, does not
+rebuild.  A missing ``nvcc`` or a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
-build_log: dict[str, str] = {}   # name -> the compiler's output of this process's build
+build_log: dict[str, str] = {}   # name and -D flags -> the compiler's output in this process
 
 
 def find_nvcc() -> str:
@@ -42,24 +44,31 @@ def find_nvcc() -> str:
                        f"{home}/bin); the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the library of csrc/<name>.cu goes, keyed by source and flags."""
+def define_flags(defines: dict[str, int] | None) -> tuple[str, ...]:
+    """``-DKEY=VALUE`` flags, in sorted key order."""
+    return tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
+
+
+def library_path(name: str, defines: dict[str, int] | None = None) -> Path:
+    """Where the library of csrc/<name>.cu goes, keyed by source, flags and
+    defines."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + define_flags(defines))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source exists."""
-    out = library_path(name)
+def build(name: str, defines: dict[str, int] | None = None) -> Path:
+    """Compile csrc/<name>.cu with `defines` unless that library exists."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *define_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log[name] = proc.stdout + proc.stderr
+    build_log[" ".join((name,) + define_flags(defines))] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
@@ -68,9 +77,10 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+def load(name: str, defines: dict[str, int] | None = None) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu with `defines`, built on first use."""
+    key = (name, define_flags(defines))
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)))
-        return _loaded[name]
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build(name, defines)))
+        return _loaded[key]

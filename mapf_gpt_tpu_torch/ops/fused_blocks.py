@@ -20,8 +20,12 @@ Port of ``mapf_gpt_tpu/ops/fused_gpt.py``'s ``_block_kernel`` (through
   (built by ``ops/_build.py``) or raise.  ``launches`` counts its calls of
   the kernel library, one per chunk.
 
-The kernel is built for the 85M's shape (T=256, E=768, 12 heads); the plain
-version takes any shape.
+The kernel is built for the width of the stacks it is given, on first use:
+the 85M's (E=768, head dim 64) from the source as it stands, any other as a
+library of its own (``-DFUSED_BLOCKS_E``, ``-DFUSED_BLOCKS_DH``).
+:func:`check_width` raises, before ``nvcc`` starts, for a width the kernel
+cannot hold (T other than 256, E not a multiple of 128, head dim other than
+32 or 64).  The plain version takes any shape.
 """
 
 from __future__ import annotations
@@ -114,19 +118,48 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+_T = 256                     # the context length the kernel is built for
+_DEFAULT_WIDTH = (768, 64)   # (n_embd, head dim) the source builds with no defines
+
+
+def check_width(t: int, e: int, n_head: int) -> None:
+    """Raise ValueError, naming the constraint, unless the kernel can be
+    built for T=t, n_embd=e and n_head heads (the static_asserts of
+    csrc/fused_blocks.cu)."""
+    if t != _T:
+        raise ValueError(f"fused_blocks: T must be {_T}; got {t}")
+    if n_head <= 0 or e % n_head:
+        raise ValueError(f"fused_blocks: n_embd {e} is not a multiple of n_head {n_head}")
+    dh = e // n_head
+    if dh not in (32, 64):
+        raise ValueError(f"fused_blocks: head dim must be 32 or 64; got {dh}")
+    if e % 128:
+        raise ValueError(f"fused_blocks: n_embd must be a multiple of 128; got {e}")
+    if (e + n_head * t + n_head) * 4 > 48 * 1024:
+        raise ValueError(f"fused_blocks: {n_head} heads x T={t} exceed the thin attention's "
+                         "48 KB of static shared memory")
+
+
+def kernel_defines(e: int, n_head: int) -> dict[str, int]:
+    """The -D defines that build the kernel for this width (none for the 85M's)."""
+    dh = e // n_head
+    return {} if (e, dh) == _DEFAULT_WIDTH else {"FUSED_BLOCKS_E": e, "FUSED_BLOCKS_DH": dh}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
+def _library(e: int = 768, n_head: int = 12) -> ctypes.CDLL:
+    """The kernel's library for this width, built on first use."""
     from mapf_gpt_tpu_torch.ops import _build
 
-    return bind(_build.load("fused_blocks"))
+    return bind(_build.load("fused_blocks", kernel_defines(e, n_head)))
 
 
 @functools.cache
-def kernel_config() -> dict[str, int]:
-    """The shape constants the kernel was built for (builds it if needed)."""
+def kernel_config(e: int = 768, n_head: int = 12) -> dict[str, int]:
+    """The shape constants of the kernel built for this width (builds it if
+    needed)."""
     vals = [ctypes.c_int() for _ in range(3)]
-    _library().fused_blocks_config(*[ctypes.byref(v) for v in vals])
+    _library(e, n_head).fused_blocks_config(*[ctypes.byref(v) for v in vals])
     return dict(zip(("t", "e", "h"), (v.value for v in vals)))
 
 
@@ -152,14 +185,17 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
         raise ValueError(f"fused_blocks: no kernel for device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"fused_blocks: x must be [N, T, E]; got {tuple(x.shape)}")
-    lib = _library()
-    cfg = kernel_config()
     n, t, e = x.shape
     layers = stacks.wqkv.shape[0]
-    if (t, e, stacks.n_head) != (cfg["t"], cfg["e"], cfg["h"]) or layers == 0:
+    check_width(t, e, stacks.n_head)
+    if layers == 0:
+        raise ValueError("fused_blocks: no layers")
+    lib = _library(e, stacks.n_head)
+    cfg = kernel_config(e, stacks.n_head)
+    if (t, e, stacks.n_head) != (cfg["t"], cfg["e"], cfg["h"]):
         raise ValueError(
-            f"fused_blocks: the kernel is built for T={cfg['t']}, n_embd={cfg['e']}, "
-            f"{cfg['h']} heads; got T={t}, n_embd={e}, {stacks.n_head} heads, {layers} layers")
+            f"fused_blocks: the library is built for T={cfg['t']}, n_embd={cfg['e']}, "
+            f"{cfg['h']} heads; got T={t}, n_embd={e}, {stacks.n_head} heads")
     dev = x.device
     f = 4 * e
     for name, ten, dtype, shape in (

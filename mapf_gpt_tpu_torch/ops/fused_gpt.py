@@ -6,14 +6,26 @@ routes, chosen as the JAX package chooses them
 
 - the e2e route (2M, 6M; all layers' weights fit one call): embedding, all
   layers, final LN and head in one kernel, ``_e2e_kernel``'s counterpart
-  ``csrc/fused_gpt.cu``, built for E=160/5 heads and E=256/8 heads;
+  ``csrc/fused_gpt.cu``;
 - the chunked route (85M): the embedding and the head in plain PyTorch (the
   JAX package leaves them to XLA), the layers through
   ``ops/fused_blocks.py`` (``_block_kernel``'s counterpart).  The two
   routes round differently, as in the JAX package: the e2e embedding adds
-  the bf16 tables and its head reads the bf16-rounded wte; the chunked
-  embedding adds the fp32 tables before rounding and its head reads the
+  the bf16 tables (an id outside the vocabulary embeds as wpe alone, as the
+  TPU kernel's one-hot product gives) and its head reads the bf16-rounded
+  wte; the chunked embedding adds the fp32 tables before rounding (an id
+  outside the vocabulary is read as JAX indexing reads it: a negative id
+  wraps once, then ids are clamped to the table) and its head reads the
   fp32 wte.
+
+Which kernel runs a route on CUDA is the card's choice (:func:`cuda_plan`),
+and the width is built on first use: the e2e route runs on the e2e kernel
+where its constraints hold (head dim 32, at most 8 heads, its shared memory
+within a block's; the 2M's and 6M's widths come from the source as it
+stands, any other from ``-DFUSED_GPT_E/H/CH``), and otherwise as the same
+function in three steps: the plain e2e embedding, the layer-stack kernel
+over all layers with the last thinned, the plain e2e head.  A width neither
+kernel can hold raises ``ValueError`` before ``nvcc`` starts.
 
 - :func:`stack_weights` stacks a model's weights into the kernels' layout:
   bf16 [L, in, out] matrices with the attention scale and log2(e) folded
@@ -105,17 +117,30 @@ def default_layers_per_call(n_embd: int, n_layer: int) -> int:
     return max(1, min(n_layer, budget // per_layer_bytes))
 
 
-def _e2e_route(w: FusedWeights) -> bool:
-    """Whether the JAX package runs these weights in one e2e call."""
-    layers, e, _ = w.wqkv.shape
-    return default_layers_per_call(e, layers) >= layers
+def _route(e: int, layers: int) -> str:
+    """The JAX package's route: "e2e" (one call) or "chunked"."""
+    return "e2e" if default_layers_per_call(e, layers) >= layers else "chunked"
 
 
-def _e2e_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
+def _e2e_reference(w: FusedWeights, tokens: torch.Tensor,
+                   blocks: Callable = blocks_reference) -> torch.Tensor:
+    """The e2e route: bf16 embedding (an id outside [0, vocab) embeds as wpe
+    alone), `blocks` over all layers with the last thinned, the head on the
+    bf16-rounded wte."""
     t = tokens.shape[1]
-    x = (w.wte[tokens.long()].float() + w.wpe[:t].float()).to(torch.bfloat16)  # [N, T, E]
-    x = blocks_reference(x, w.stacks(), last_only=True)
+    tok = tokens.long()
+    valid = (tok >= 0) & (tok < w.wte.shape[0])
+    emb = torch.where(valid[..., None], w.wte[tok.clamp(0, w.wte.shape[0] - 1)].float(), 0.0)
+    x = (emb + w.wpe[:t].float()).to(torch.bfloat16)  # [N, T, E]
+    x = blocks(x, w.stacks(), True)
     return ln_f32(x[:, -1].float(), w.gf) @ w.wht
+
+
+def jax_index(tokens: torch.Tensor, size: int) -> torch.Tensor:
+    """Row ids as JAX's ``table[tokens]`` reads them: a negative id wraps
+    once, then every id is clamped to [0, size)."""
+    tok = tokens.long()
+    return torch.where(tok < 0, tok + size, tok).clamp(0, size - 1)
 
 
 def chunked_logits(w: FusedWeights, tokens: torch.Tensor, layers_per_call: int,
@@ -124,7 +149,7 @@ def chunked_logits(w: FusedWeights, tokens: torch.Tensor, layers_per_call: int,
     `layers_per_call` layers (the last chunk thinned), plain head."""
     t = tokens.shape[1]
     layers = w.wqkv.shape[0]
-    x = (w.wte32[tokens.long()] + w.wpe32[:t]).to(torch.bfloat16)
+    x = (w.wte32[jax_index(tokens, w.wte32.shape[0])] + w.wpe32[:t]).to(torch.bfloat16)
     stacks = w.stacks()
     for lo in range(0, layers, layers_per_call):
         hi = min(lo + layers_per_call, layers)
@@ -135,10 +160,62 @@ def chunked_logits(w: FusedWeights, tokens: torch.Tensor, layers_per_call: int,
 def fused_logits_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_logits`, on any device: tokens
     int [N, T] -> fp32 logits [N, vocab] at the last position."""
-    if _e2e_route(w):
-        return _e2e_reference(w, tokens)
     layers, e, _ = w.wqkv.shape
+    if _route(e, layers) == "e2e":
+        return _e2e_reference(w, tokens)
     return chunked_logits(w, tokens, default_layers_per_call(e, layers))
+
+
+_DEFAULT_WIDTHS = ((160, 5), (256, 8))   # built by the source with no defines (2M, 6M)
+_SMEM_LIMIT = 232448                      # shared memory a block can have on sm_90
+_T, _WARPS = 256, 8
+
+
+def e2e_chunk(e: int, n_head: int, t: int = _T) -> int | None:
+    """The e2e kernel's CH (keys / hidden columns per chunk) for this width:
+    the largest that meets the static_asserts of ``Fwd`` in
+    csrc/fused_gpt.cu, or None where the kernel cannot hold the width."""
+    if t != _T or n_head <= 0 or e % n_head or e // n_head != 32 or n_head > _WARPS:
+        return None
+    f = 4 * e
+    for ch in (128, 64, 32, 16):
+        scratch = 16 * 16 * 4 + 16 * ch * 2                    # a warp's stage + P tile
+        smem = t * e * 2 + _WARPS * (16 * e * 2 + scratch)
+        thin_floats = 5 * e + n_head * t + 32 + f
+        if t % ch == 0 and f % ch == 0 and thin_floats * 4 <= _WARPS * scratch \
+                and smem <= _SMEM_LIMIT:
+            return ch
+    return None
+
+
+def e2e_defines(e: int, n_head: int) -> dict[str, int]:
+    """The -D defines that build the e2e kernel for this width (none for the
+    2M's and 6M's)."""
+    if (e, n_head) in _DEFAULT_WIDTHS:
+        return {}
+    ch = e2e_chunk(e, n_head)
+    if ch is None:
+        raise ValueError(f"fused_gpt: the e2e kernel cannot hold n_embd={e}, {n_head} heads")
+    return {"FUSED_GPT_E": e, "FUSED_GPT_H": n_head, "FUSED_GPT_CH": ch}
+
+
+def cuda_plan(e: int, n_head: int, layers: int, t: int = _T) -> tuple[str, str]:
+    """(route, kernel) that :func:`fused_logits` takes on CUDA for this
+    shape, without building anything: route "e2e" or "chunked" (the JAX
+    package's choice), kernel "fused_gpt" (the e2e kernel) or
+    "fused_blocks" (the layer-stack kernel).  Raises ValueError, naming the
+    constraint, for a width neither kernel can hold."""
+    route = _route(e, layers)
+    if route == "e2e" and e2e_chunk(e, n_head, t) is not None:
+        return route, "fused_gpt"
+    try:
+        fused_blocks.check_width(t, e, n_head)
+    except ValueError as err:
+        raise ValueError(f"fused_gpt: no kernel for n_embd={e}, {n_head} heads, T={t} "
+                         f"on the {route} route: the e2e kernel needs head dim 32, at most "
+                         f"{_WARPS} heads, T={_T} and its shared memory within a block's; {err}"
+                         ) from None
+    return route, "fused_blocks"
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -154,18 +231,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
+def _library(e: int = 160, n_head: int = 5) -> ctypes.CDLL:
+    """The kernel's library holding this width, built on first use."""
     from mapf_gpt_tpu_torch.ops import _build
 
-    return bind(_build.load("fused_gpt"))
+    return bind(_build.load("fused_gpt", e2e_defines(e, n_head)))
 
 
 @functools.cache
-def kernel_config() -> dict[tuple[int, int], dict[str, int]]:
-    """The widths the kernel was built for, (n_embd, n_head) -> its shape
-    constants (builds it if needed)."""
-    lib = _library()
+def kernel_config(e: int = 160, n_head: int = 5) -> dict[tuple[int, int], dict[str, int]]:
+    """The widths of the library that holds (e, n_head), (n_embd, n_head) ->
+    its shape constants (builds it if needed)."""
+    lib = _library(e, n_head)
     built = {}
     for i in range(16):
         vals = [ctypes.c_int() for _ in range(5)]
@@ -178,14 +255,14 @@ def kernel_config() -> dict[tuple[int, int], dict[str, int]]:
 
 def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     global launches
-    lib = _library()
     n, t = tokens.shape
     layers, e, _ = w.wqkv.shape
-    cfg = kernel_config().get((e, w.n_head))
+    lib = _library(e, w.n_head)
+    cfg = kernel_config(e, w.n_head).get((e, w.n_head))
     if cfg is None or t != cfg["t"]:
         raise ValueError(
-            f"fused_gpt: the kernel is built for T=256 and (n_embd, n_head) in "
-            f"{sorted(kernel_config())}; got T={t}, n_embd={e}, {w.n_head} heads")
+            f"fused_gpt: the library is built for T=256 and (n_embd, n_head) in "
+            f"{sorted(kernel_config(e, w.n_head))}; got T={t}, n_embd={e}, {w.n_head} heads")
     vocab = w.wte.shape[0]
     if vocab > cfg["max_vocab"]:
         raise ValueError(f"fused_gpt: vocab {vocab} > {cfg['max_vocab']}")
@@ -230,14 +307,18 @@ def fused_logits(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
 
     The route is the JAX package's: e2e when :func:`default_layers_per_call`
     covers every layer, chunked otherwise.  CPU tensors take
-    :func:`fused_logits_reference`; CUDA tensors launch the e2e kernel, or
-    on the chunked route the layer-stack kernel once over all layers (on the
-    GPU the chunk size does not change the result: x is bf16 at every layer
-    boundary), or raise."""
+    :func:`fused_logits_reference`; CUDA tensors launch the kernel
+    :func:`cuda_plan` names: the e2e kernel, or the layer-stack kernel once
+    over all layers (on the GPU the chunk size does not change the result:
+    x is bf16 at every layer boundary), or raise."""
     if tokens.device.type == "cpu":
         return fused_logits_reference(w, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"fused_gpt: no kernel for device {tokens.device}")
-    if _e2e_route(w):
+    layers, e, _ = w.wqkv.shape
+    route, kernel = cuda_plan(e, w.n_head, layers, tokens.shape[1])
+    if kernel == "fused_gpt":
         return _e2e_kernel(w, tokens)
-    return chunked_logits(w, tokens, w.wqkv.shape[0], fused_blocks.fused_blocks)
+    if route == "e2e":
+        return _e2e_reference(w, tokens, fused_blocks.fused_blocks)
+    return chunked_logits(w, tokens, layers, fused_blocks.fused_blocks)

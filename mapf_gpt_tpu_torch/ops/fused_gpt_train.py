@@ -1,0 +1,413 @@
+"""Fused training path: the layer stack's forward and backward as hand-written
+kernels, under one ``torch.autograd.Function``.
+
+Port of ``mapf_gpt_tpu/ops/fused_gpt_train.py``:
+
+- :func:`build_train_stacks` stacks a model's layer weights for the kernels,
+  differentiably: bf16 [L, in, out] matrices and fp32 LN gains, with no
+  scale folded in (the gradients map back to the raw parameters).
+- :func:`train_fwd_reference` and :func:`train_bwd_reference` are the plain
+  PyTorch versions of one chunk's forward and backward (``_fwd_kernel``,
+  ``_bwd_kernel``): fp32 products over bf16 values, the JAX kernels'
+  rounding points, no autograd.  The forward saves x before each attention
+  and each MLP (``xsave`` [2L, N, T, E]); the backward recomputes LN, q|k|v,
+  the attention probabilities and the MLP hidden from those saves, keeps dx
+  in fp32 inside the chunk and returns it as bf16, with fp32 gradients of
+  the six stacks.
+- :func:`train_forward` and :func:`train_backward` are the wrappers: CPU
+  tensors take the plain versions; CUDA tensors launch the kernels of
+  ``csrc/fused_train.cu`` (one call of its library per chunk, counted in
+  ``fwd_launches`` and ``bwd_launches``) or raise.
+- :class:`FusedBlocksTrain` is the counterpart of the JAX ``custom_vjp``:
+  embeddings [N, T, E] bf16 -> last-position activations [N, E] bf16.  The
+  forward runs all layers in one call (x is bf16 at every layer boundary,
+  so the JAX package's VMEM-sized forward chunks would not change the
+  result); the backward walks 2-layer chunks for E <= 384 and 1-layer
+  chunks above, dx bf16 between chunks, as the JAX package does
+  (``_bwd_layers_per_call``).  The top gradient is zero at every position
+  but the last.  The weight gradients leave it in
+  the stacks' dtype (bf16 matrices, fp32 gains).
+- :func:`fused_loss_fn` is ``train_step.loss_fn`` through the kernels:
+  embedding (ids read as JAX indexing reads them, as the JAX function's
+  ``wte[tokens]``), the stack, fp32 LN_f and the tied head, cross-entropy
+  at the last position, all but the stack plain PyTorch ops under
+  autograd.
+
+Semantics match the module for bias-free, dropout-0 configs with tanh GELU
+(the module uses the erf form), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from mapf_gpt_tpu_torch.ops.fused_blocks import check_tensor, ln_f32
+from mapf_gpt_tpu_torch.ops.fused_gpt import jax_index
+
+_EPS = 1e-5
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+_GELU_C = 0.044715
+GROUP = 256    # contexts a kernel call processes at a time
+
+fwd_launches = 0   # forward kernel calls by train_forward; callers may reset them to 0
+bwd_launches = 0   # backward kernel calls by train_backward
+
+
+class TrainStacks(NamedTuple):
+    wqkv: torch.Tensor    # bf16 [L, E, 3E]
+    wproj: torch.Tensor   # bf16 [L, E, E]
+    wfc: torch.Tensor     # bf16 [L, E, 4E]
+    wfc2: torch.Tensor    # bf16 [L, 4E, E]
+    g1: torch.Tensor      # f32 [L, E]
+    g2: torch.Tensor      # f32 [L, E]
+    n_head: int
+
+    def chunk(self, lo: int, hi: int) -> "TrainStacks":
+        """Layers lo .. hi-1."""
+        return TrainStacks(*(s[lo:hi] for s in self[:6]), n_head=self.n_head)
+
+
+def build_train_stacks(model) -> TrainStacks:
+    """Stack a :class:`models.gpt.GPT`'s layer weights (bf16 matrices [in,
+    out], fp32 gains), differentiably and without the inference-time scale
+    folding."""
+    blocks = model.transformer.h
+    bf = lambda ts: torch.stack(ts).to(torch.bfloat16).contiguous()
+    return TrainStacks(
+        wqkv=bf([b.attn.c_attn.weight.t() for b in blocks]),
+        wproj=bf([b.attn.c_proj.weight.t() for b in blocks]),
+        wfc=bf([b.mlp.c_fc.weight.t() for b in blocks]),
+        wfc2=bf([b.mlp.c_proj.weight.t() for b in blocks]),
+        g1=torch.stack([b.ln_1.weight for b in blocks]).float().contiguous(),
+        g2=torch.stack([b.ln_2.weight for b in blocks]).float().contiguous(),
+        n_head=model.cfg.n_head,
+    )
+
+
+def _bwd_layers_per_call(cfg) -> int:
+    """Backward chunk: 2 layers for E <= 384, 1 above.  dx is fp32 inside a
+    chunk and bf16 between chunks, so this does change the result."""
+    return 2 if cfg.n_embd <= 384 else 1
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def _ln(x32: torch.Tensor, gain: torch.Tensor):
+    """(LN(x) * gain, xhat, rstd): two-pass fp32 LayerNorm, eps 1e-5."""
+    mu = x32.mean(-1, keepdim=True)
+    xc = x32 - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + _EPS)
+    xhat = xc * rstd
+    return xhat * gain, xhat, rstd
+
+
+def _ln_bwd(dy: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor, gain: torch.Tensor):
+    """(dx, dgain rows) of y = xhat * gain."""
+    dxhat = dy * gain
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return (dxhat - m1 - xhat * m2) * rstd, dy * xhat
+
+
+def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
+    u = _SQRT_2_OVER_PI * (h + _GELU_C * h * h * h)
+    return 0.5 * h * (1.0 + torch.tanh(u))
+
+
+def _gelu_tanh_grad(h: torch.Tensor) -> torch.Tensor:
+    u = _SQRT_2_OVER_PI * (h + _GELU_C * h * h * h)
+    t = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * h * h)
+    return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * du
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 product with fp32 accumulation (fp32 result)."""
+    return a.float() @ b.float()
+
+
+def _heads(z: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[N, T, E] -> [N, H, T, dh]."""
+    n, t, e = z.shape
+    return z.reshape(n, t, n_head, e // n_head).transpose(1, 2)
+
+
+def _merge(z: torch.Tensor) -> torch.Tensor:
+    """[N, H, T, dh] -> [N, T, E]."""
+    n, h, t, dh = z.shape
+    return z.transpose(1, 2).reshape(n, t, h * dh)
+
+
+def _probs(qkv: torch.Tensor, n_head: int):
+    """(p fp32 [N, H, T, T], q, k, v [N, H, T, dh]): softmax of the scaled
+    scores with the row max subtracted, not rounded."""
+    e = qkv.shape[-1] // 3
+    q, k, v = (_heads(z, n_head) for z in qkv.split(e, dim=-1))
+    s = _mm(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(e // n_head))
+    ex = torch.exp(s - s.amax(-1, keepdim=True))
+    return ex / ex.sum(-1, keepdim=True), q, k, v
+
+
+def train_fwd_reference(x: torch.Tensor, stacks: TrainStacks, last_only: bool):
+    """Plain PyTorch version of the forward kernel: bf16 x [N, T, E] through
+    the chunk's layers -> (out, xsave): out bf16 [N, E] (the last position)
+    when last_only, else [N, T, E]; xsave bf16 [2L, N, T, E]."""
+    bf16 = torch.bfloat16
+    saves = []
+    for l in range(stacks.wqkv.shape[0]):
+        saves.append(x)
+        xn = _ln(x.float(), stacks.g1[l])[0].to(bf16)
+        qkv = _mm(xn, stacks.wqkv[l]).to(bf16)
+        p, _, _, v = _probs(qkv, stacks.n_head)
+        att = _merge(_mm(p.to(bf16), v).to(bf16))
+        x = (x.float() + _mm(att, stacks.wproj[l]).to(bf16).float()).to(bf16)
+        saves.append(x)
+        xn2 = _ln(x.float(), stacks.g2[l])[0].to(bf16)
+        hact = _gelu_tanh(_mm(xn2, stacks.wfc[l])).to(bf16)
+        x = (x.float() + _mm(hact, stacks.wfc2[l]).to(bf16).float()).to(bf16)
+    return (x[:, -1] if last_only else x), torch.stack(saves)
+
+
+def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks):
+    """Plain PyTorch version of the backward kernel: xsave [2L, N, T, E] and
+    the gradient of the chunk's output stream dxin bf16 [N, T, E] -> (dx
+    bf16 [N, T, E], (dwqkv, dwproj, dwfc, dwfc2, dg1, dg2) fp32)."""
+    bf16 = torch.bfloat16
+    layers = stacks.wqkv.shape[0]
+    n, t, e = dxin.shape
+    h = stacks.n_head
+    scale = 1.0 / math.sqrt(e // h)
+    rows = lambda z: z.reshape(n * t, -1)
+    grads = [torch.zeros(s.shape, dtype=torch.float32, device=dxin.device) for s in stacks[:6]]
+    dwqkv, dwproj, dwfc, dwfc2, dg1, dg2 = grads
+    dx = dxin.float()
+    for l in range(layers - 1, -1, -1):
+        x_in, x_mid = xsave[2 * l], xsave[2 * l + 1]
+        # MLP backward (recompute xn2, hmid)
+        xn2f, xhat2, rstd2 = _ln(x_mid.float(), stacks.g2[l])
+        xn2 = xn2f.to(bf16)
+        hmid = _mm(xn2, stacks.wfc[l])
+        hact = _gelu_tanh(hmid).to(bf16)
+        dxb = dx.to(bf16)
+        dwfc2[l] = _mm(rows(hact).T, rows(dxb))
+        dhb = (_mm(dxb, stacks.wfc2[l].T) * _gelu_tanh_grad(hmid)).to(bf16)
+        dwfc[l] = _mm(rows(xn2).T, rows(dhb))
+        dx_ln2, dg2_rows = _ln_bwd(_mm(dhb, stacks.wfc[l].T), xhat2, rstd2, stacks.g2[l])
+        dg2[l] = rows(dg2_rows).sum(0)
+        dx = dx + dx_ln2
+        # attention backward (recompute xn1, q|k|v, p)
+        xn1f, xhat1, rstd1 = _ln(x_in.float(), stacks.g1[l])
+        xn1 = xn1f.to(bf16)
+        qkv = _mm(xn1, stacks.wqkv[l]).to(bf16)
+        dxb = dx.to(bf16)
+        p, q, k, v = _probs(qkv, h)
+        pb = p.to(bf16)
+        att = _merge(_mm(pb, v).to(bf16))
+        dwproj[l] = _mm(rows(att).T, rows(dxb))
+        da = _heads(_mm(dxb, stacks.wproj[l].T).to(bf16), h)
+        dv = _mm(pb.transpose(-1, -2), da).to(bf16)
+        dp = _mm(da, v.transpose(-1, -2))
+        ds = ((dp - (dp * p).sum(-1, keepdim=True)) * p * scale).to(bf16)
+        dq = _mm(ds, k).to(bf16)
+        dk = _mm(ds.transpose(-1, -2), q).to(bf16)
+        dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
+        dwqkv[l] = _mm(rows(xn1).T, rows(dqkv))
+        dx_ln1, dg1_rows = _ln_bwd(_mm(dqkv, stacks.wqkv[l].T), xhat1, rstd1, stacks.g1[l])
+        dg1[l] = rows(dg1_rows).sum(0)
+        dx = dx + dx_ln1
+    return dx.to(bf16), tuple(grads)
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+def check_train_width(t: int, e: int, n_head: int) -> None:
+    """Raise ValueError, naming the constraint, unless csrc/fused_train.cu
+    takes T=t, n_embd=e and n_head heads."""
+    if t <= 0 or t % 64 or t > 256:
+        raise ValueError(f"fused_train: T must be a multiple of 64 up to 256; got {t}")
+    if n_head <= 0 or e % n_head:
+        raise ValueError(f"fused_train: n_embd {e} is not a multiple of n_head {n_head}")
+    if e // n_head not in (32, 64):
+        raise ValueError(f"fused_train: head dim must be 32 or 64; got {e // n_head}")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from csrc/fused_train.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_train_workspace.argtypes = [i] * 5
+    lib.fused_train_workspace.restype = ctypes.c_longlong
+    lib.fused_train_forward.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.fused_train_forward.restype = i
+    lib.fused_train_backward.argtypes = [p] * 16 + [i] * 6 + [p]
+    lib.fused_train_backward.restype = i
+    lib.fused_train_error_string.argtypes = [i]
+    lib.fused_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    from mapf_gpt_tpu_torch.ops import _build
+
+    return bind(_build.load("fused_train"))
+
+
+def _check_stacks(stacks: TrainStacks, e: int, dev: torch.device) -> int:
+    layers = stacks.wqkv.shape[0]
+    if layers == 0:
+        raise ValueError("fused_train: no layers")
+    f = 4 * e
+    for name, ten, dtype, shape in (
+            ("wqkv", stacks.wqkv, torch.bfloat16, (layers, e, 3 * e)),
+            ("wproj", stacks.wproj, torch.bfloat16, (layers, e, e)),
+            ("wfc", stacks.wfc, torch.bfloat16, (layers, e, f)),
+            ("wfc2", stacks.wfc2, torch.bfloat16, (layers, f, e)),
+            ("g1", stacks.g1, torch.float32, (layers, e)),
+            ("g2", stacks.g2, torch.float32, (layers, e))):
+        check_tensor("fused_train", name, ten, dtype, shape, dev)
+    return layers
+
+
+def _workspace(lib, kind: int, group: int, t: int, e: int, h: int, dev) -> torch.Tensor:
+    nbytes = lib.fused_train_workspace(kind, group, t, e, h)
+    if nbytes < 0:
+        raise ValueError(f"fused_train: the kernels do not take T={t}, n_embd={e}, {h} heads")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"fused_train {what} launch failed: "
+                           f"{lib.fused_train_error_string(rc).decode()} ({rc})")
+
+
+def train_forward(x: torch.Tensor, stacks: TrainStacks, last_only: bool):
+    """One forward chunk: bf16 x [N, T, E] -> (out, xsave) as
+    :func:`train_fwd_reference`.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one call per chunk) or raise."""
+    global fwd_launches
+    if x.device.type == "cpu":
+        return train_fwd_reference(x, stacks, last_only)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"fused_train: x must be [N, T, E]; got {tuple(x.shape)}")
+    n, t, e = x.shape
+    check_train_width(t, e, stacks.n_head)
+    dev = x.device
+    check_tensor("fused_train", "x", x, torch.bfloat16, (n, t, e), dev)
+    layers = _check_stacks(stacks, e, dev)
+    lib = _library()
+    xsave = torch.empty((2 * layers, n, t, e), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n, e) if last_only else (n, t, e), dtype=torch.bfloat16, device=dev)
+    if n == 0:
+        return out, xsave
+    group = min(n, GROUP)
+    ws = _workspace(lib, 0, group, t, e, stacks.n_head, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.fused_train_forward(
+            x.data_ptr(), out.data_ptr(), xsave.data_ptr(), *(s.data_ptr() for s in stacks[:6]),
+            ws.data_ptr(), n, t, e, stacks.n_head, layers, int(last_only), group, stream)
+    _raise_on(lib, rc, "forward")
+    fwd_launches += 1
+    return out, xsave
+
+
+def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks):
+    """One backward chunk: (dx, grads) as :func:`train_bwd_reference`.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one call
+    per chunk) or raise."""
+    global bwd_launches
+    if dxin.device.type == "cpu":
+        return train_bwd_reference(xsave, dxin, stacks)
+    if dxin.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {dxin.device}")
+    if dxin.dim() != 3:
+        raise ValueError(f"fused_train: dxin must be [N, T, E]; got {tuple(dxin.shape)}")
+    n, t, e = dxin.shape
+    check_train_width(t, e, stacks.n_head)
+    dev = dxin.device
+    layers = _check_stacks(stacks, e, dev)
+    check_tensor("fused_train", "xsave", xsave, torch.bfloat16, (2 * layers, n, t, e), dev)
+    check_tensor("fused_train", "dxin", dxin, torch.bfloat16, (n, t, e), dev)
+    lib = _library()
+    dx = torch.empty((n, t, e), dtype=torch.bfloat16, device=dev)
+    grads = tuple(torch.zeros(s.shape, dtype=torch.float32, device=dev) for s in stacks[:6])
+    if n == 0:
+        return dx, grads
+    group = min(n, GROUP)
+    ws = _workspace(lib, 1, group, t, e, stacks.n_head, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.fused_train_backward(
+            xsave.data_ptr(), dxin.data_ptr(), *(s.data_ptr() for s in stacks[:6]),
+            dx.data_ptr(), *(g.data_ptr() for g in grads), ws.data_ptr(), n, t, e,
+            stacks.n_head, layers, group, stream)
+    _raise_on(lib, rc, "backward")
+    bwd_launches += 1
+    return dx, grads
+
+
+class FusedBlocksTrain(torch.autograd.Function):
+    """bf16 embeddings x [N, T, E] -> last-position activations [N, E] bf16,
+    with the backward through the kernels (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, n_head, bwd_lpc, wqkv, wproj, wfc, wfc2, g1, g2):
+        stacks = TrainStacks(wqkv, wproj, wfc, wfc2, g1, g2, n_head)
+        xl, xsave = train_forward(x, stacks, last_only=True)
+        ctx.save_for_backward(xsave, *stacks[:6])
+        ctx.n_head, ctx.bwd_lpc = n_head, bwd_lpc
+        return xl
+
+    @staticmethod
+    def backward(ctx, dxl):
+        xsave, *tensors = ctx.saved_tensors
+        stacks = TrainStacks(*tensors, n_head=ctx.n_head)
+        layers = stacks.wqkv.shape[0]
+        _, n, t, e = xsave.shape
+        # the loss reads the last position only
+        dx = torch.zeros((n, t, e), dtype=torch.bfloat16, device=xsave.device)
+        dx[:, -1] = dxl.to(torch.bfloat16)
+        chunk_grads = []
+        for lo in reversed(range(0, layers, ctx.bwd_lpc)):
+            hi = min(lo + ctx.bwd_lpc, layers)
+            dx, grads = train_backward(xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
+            chunk_grads.append(grads)
+        bottom_up = chunk_grads[::-1]
+        dstacks = tuple(torch.cat([g[k] for g in bottom_up]).to(stacks[k].dtype)
+                        for k in range(6))
+        return (dx, None, None) + dstacks
+
+
+def fused_loss_fn(model, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``train_step.loss_fn`` through the kernels: tokens int [B, T],
+    targets int [B] -> mean cross-entropy at the last position,
+    differentiable with respect to the model's parameters."""
+    cfg = model.cfg
+    if cfg.bias or cfg.dropout != 0.0:
+        raise ValueError("fused_loss_fn: bias-free, dropout-0 configs only")
+    tr = model.transformer
+    wte = tr.wte.weight
+    t = tokens.shape[1]
+    # F.embedding, not wte[ids]: its backward sums the rows of a repeated id
+    # in segments, where indexing's serialises them (training contexts
+    # repeat a few ids many times)
+    x = (F.embedding(jax_index(tokens, wte.shape[0]), wte) + tr.wpe.weight[:t]
+         ).to(torch.bfloat16)
+    stacks = build_train_stacks(model)
+    xl = FusedBlocksTrain.apply(x, cfg.n_head, _bwd_layers_per_call(cfg), *stacks[:6])
+    logits = ln_f32(xl.float(), tr.ln_f.weight) @ wte.float().T
+    return F.cross_entropy(logits, targets.long())

@@ -88,7 +88,7 @@ def main() -> None:
     times = {}
     for name, path in libs.items():
         lib = fused_gpt.bind(ctypes.CDLL(path))
-        with mock.patch.object(fused_gpt, "_library", lambda: lib):
+        with mock.patch.object(fused_gpt, "_library", lambda *_: lib):
             fused_gpt.fused_logits(w, tokens)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)

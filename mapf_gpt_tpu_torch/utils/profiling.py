@@ -1,0 +1,82 @@
+"""Throughput and MFU meters and a ``torch.profiler`` trace.
+
+The port's counterpart of ``mapf_gpt_tpu/utils/profiling.py``: MFU is
+measured against the card's dense bf16 peak with the PaLM appendix-B flop
+model.  A device with no known peak (the CPU, an unlisted card) gets no
+MFU: :class:`Meter` returns None for it rather than a number that is not
+the device's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+# dense bf16 tensor-core peaks (NVIDIA's data sheets, SXM parts)
+GPU_PEAK_FLOPS = {
+    "h100": 989e12,
+    "h200": 989e12,
+    "a100": 312e12,
+}
+
+
+def chip_peak_flops(device: torch.device | str = "cuda") -> float | None:
+    """Dense bf16 FLOP/s of `device` by its name, or None (the CPU, a card
+    not listed)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device).lower()
+    for key, val in GPU_PEAK_FLOPS.items():
+        if key in name:
+            return val
+    return None
+
+
+def transformer_flops_per_token(n_params: int, n_layer: int, n_head: int,
+                                head_dim: int, seq_len: int) -> float:
+    """PaLM appendix-B estimate of training FLOP a token: 6N + 12 L H Q T."""
+    return 6 * n_params + 12 * n_layer * n_head * head_dim * seq_len
+
+
+class Meter:
+    """Exponentially smoothed steps/s and MFU."""
+
+    def __init__(self, flops_per_step: float, peak_flops: float | None, beta: float = 0.9):
+        self.flops_per_step = flops_per_step
+        self.peak_flops = peak_flops
+        self.beta = beta
+        self.smoothed = None
+        self._t = None
+
+    def tick(self, steps: int = 1) -> tuple[float, float | None]:
+        """Call where the host has waited for the device, with the steps run
+        since the previous call.  Returns (steps_per_s, mfu), smoothed; mfu
+        is None without a peak."""
+        now = time.perf_counter()
+        if self._t is None:
+            self._t = now
+            return 0.0, (0.0 if self.peak_flops else None)
+        dt = now - self._t
+        self._t = now
+        sps = steps / max(dt, 1e-9)
+        self.smoothed = sps if self.smoothed is None else (
+            self.beta * self.smoothed + (1 - self.beta) * sps)
+        if not self.peak_flops:
+            return self.smoothed, None
+        return self.smoothed, self.smoothed * self.flops_per_step / self.peak_flops
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A ``torch.profiler`` trace of the CPU and, where there is one, the
+    card, written as a Chrome trace under `log_dir`."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
