@@ -4,13 +4,16 @@
     python3 chip_smoke.py [--seed S]
 
 Drives the port's main path, the batched rollout, for each published model
-(2M, 6M, 85M) through the entry points a user calls, and holds every CUDA
-kernel of that path against its plain PyTorch version.  Phases, one line
-each (flushed):
+(2M, 6M, 85M) and for a ``bias=True`` model on the module route through
+the attention kernel, and the 6M trainer, through the entry points a user
+calls, and holds every CUDA kernel of those paths against its plain
+PyTorch version.  Phases, one line each (flushed); phase 12 runs right
+after phase 2, so that a faulty attention kernel fails within seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
-2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, one nvcc
-   each, all started together; build seconds and ptxas' register report.
+2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, and the
+   widths of phase 8, one nvcc each, all started together; build seconds
+   and ptxas' register report.
 3. 2M kernel vs plain version: the trained 2M
    (``checkpoints/MAPF-GPT-2M-r4.pt``) at full width on 512 contexts,
    random tokens from ``--seed`` and the real tokens of a reset batch.
@@ -19,8 +22,8 @@ each (flushed):
 4. 2M rollout: 16 envs x 32 agents x 64 steps on ``random_grid(21, 0.3, s)``
    maps, argmax actions.  Every agent on a free cell, positions unique per
    env, metrics in range, and the e2e kernel's launch counter exactly one
-   per step (the layer-stack kernel's 0).  Prints CSR, ISR, SoC and
-   env-steps/s.
+   per step (the layer-stack and attention kernels' 0).  Prints CSR, ISR,
+   SoC and env-steps/s.
 5. 2M timing: the kernel on the rollout's 512 contexts beside a whole
    rollout step; then one forward at 8192 contexts (the rollout benchmark's
    256 envs x 32 agents), kernel and plain version, beside the card's bound.
@@ -37,12 +40,16 @@ each (flushed):
    ``blocks_reference`` (stream within atol 0.02 * max|ref|); a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
    counter 0; timing at 2048 contexts (the JAX harness's 85M cap).
-8. Widths built on demand: three widths no published model has, random
+8. Widths built on demand: seven widths no published model has, random
    weights from ``init_params``, 64 contexts each against
    ``fused_logits_reference`` with phase 3's tolerances: E=192/6 heads/4
    layers (e2e route, the e2e kernel built with -D defines), E=384/6/8
-   (e2e route on the layer-stack kernel) and E=512/8/12 (chunked route);
-   each kernel's counter exactly one.
+   (e2e route on the layer-stack kernel), E=512/8/12 (chunked route), and
+   on the layer-stack kernel the widths its N-tile mask and head dims of
+   16 to 128 admit: E=320/10 (n_embd not a multiple of 128), 160/10 and
+   256/16 (head dim 16), 384/4 (head dim 96), 4 layers each; each kernel's
+   counter exactly one.  Each width's whole forward timed at 2048
+   contexts beside its plain version and its bound.
 9. Training kernels (``csrc/fused_train.cu``) against their plain versions
    on the reset batch's tokens: the trained 2M on 512 contexts (two groups
    of 256) and the 6M on 300 (a group of 256 and one of 44), at full width
@@ -52,9 +59,10 @@ each (flushed):
    channel's tolerance; backward in 2-layer chunks: dx and the six
    gradients each within 0.08 * max|ref| + 1e-4, the tolerances of
    ``tests/test_fused_gpt.py`` and ``tests/test_fused_gpt_train.py``), and
-   the 85M's width (E=768, 12 heads) on a 2-layer forward and a 1-layer
-   backward chunk; a second backward launch must equal the first bit for
-   bit.
+   the 85M's width (E=768, 12 heads), head dim 16 (E=256, 16 heads) and
+   head dim 96 (E=384, 4 heads) on a 2-layer forward and a 1-layer
+   backward chunk each; a second backward launch must equal the first bit
+   for bit.
 10. The trainer through its entry point: ``train.loop.train`` with
    ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
    eval every 10, on shards written here with ``write_arrow_shard``: the
@@ -69,6 +77,31 @@ each (flushed):
    micro-batch of 2048 contexts, the kernels alone and the whole
    ``fused_loss_fn`` + backward, beside the plain versions and the bound;
    the trainer's it/s and MFU.
+12. The attention kernel (``csrc/attention.cu``, for ``attn_impl="pallas"``)
+   against its plain version ``attention_einsum``, fp32 and bf16, at
+   [B, H, T, D] = [64, 5, 256, 32] (2M-like), [32, 8, 256, 32] (6M-like),
+   [16, 12, 256, 64] (85M-like), [1, 3, 256, 32] (3 pairs), [4, 10, 256,
+   16] (D=16), [4, 4, 256, 128] (D=128), [4, 5, 200, 32] (a masked T), and
+   the 6M-like shape as the module's strided views of a q|k|v product:
+   fp32 within rtol = atol = 1e-4 (``tests/test_attention.py``), bf16
+   within 0.01 * max|ref| + 1e-3.
+13. The module route at full width: the trained 6M with
+   ``attn_impl="pallas"`` through ``make_forward(model, use_fused=False)``
+   on phase 6's 512 contexts against the same model with "einsum", phase
+   3's tolerances; the attention counter exactly 8 a forward.
+14. The slice through its entry point: a ``bias=True``,
+   ``attn_impl="pallas"`` model at the 6M's width and depth (8L/8H/256d,
+   ``init_params`` weights under ``--seed``, the biases drawn nonzero from
+   the same generator): its logits against "einsum" on 512 reset contexts,
+   then ``make_batch_rollout`` over 16 envs x 32 agents x 64 steps, argmax,
+   phase 4's invariants, the attention counter exactly 8 x 64 and both
+   fused counters 0; CSR, ISR, SoC and env-steps/s; the module's forward
+   on the rollout's 512 contexts timed beside a rollout step.
+15. Attention timing by CUDA events at [8192, 5, 256, 32] (the 2M rollout
+   at 256 envs x 32 agents) and [2048, 12, 256, 64] (the 85M at the
+   harness cap), bf16: the kernel, its plain version (in chunks), one
+   ``scaled_dot_product_attention`` call (a yardstick, never on the port's
+   path) and the bound.
 
 Then the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
@@ -78,7 +111,9 @@ so it does without a GPU, and outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -99,6 +134,7 @@ from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
 from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPTConfig, act,  # noqa: E402
                                            init_params, make_forward)
 from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
+from mapf_gpt_tpu_torch.ops import attention as tatt  # noqa: E402
 from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt  # noqa: E402
 from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
                                                  batch_reset, make_batch_rollout)
@@ -113,16 +149,23 @@ B_85M, STEPS_85M = 4, 32         # 128 contexts a step
 N_TIME = 8192                    # 256 envs x 32 agents
 N_TIME_85M = 2048                # the JAX harness's 85M context cap
 PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
-WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12))     # (n_embd, heads, layers) built on demand
+WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12),   # (n_embd, heads, layers) built on demand
+          (320, 10, 4), (160, 10, 4), (256, 16, 4), (384, 4, 4))
 N_WIDTHS = 64                    # contexts of each width's compare
+N_WIDTHS_TIME = 2048             # contexts of each width's timing
 # contexts of the training kernels' compares: the kernels run groups of
 # fgt.GROUP = 256, so the 2M's two full groups and the 6M's 256 + 44 check the
 # group offsets, the gradients summed across groups and a partial group
 N_TRAIN_CMP = {"2M": 512, "6M": 300, "85M": 64}
+TRAIN_WIDTHS = {"85M width": (768, 12), "head dim 16": (256, 16), "head dim 96": (384, 4)}
 N_TRAIN_TIME = 2048              # the 6M's reference micro-batch
 TRAIN_PLAIN_CHUNK = 256          # contexts per plain training-version call
 TRAIN_ITERS, TRAIN_BATCH, TRAIN_ACCUM = 20, 256, 2
 LOSS_DROP = 0.5                  # the trainer's last logged loss must be this far below its first
+ATT_SHAPES = ((64, 5, 256, 32), (32, 8, 256, 32), (16, 12, 256, 64), (1, 3, 256, 32),
+              (4, 10, 256, 16), (4, 4, 256, 128), (4, 5, 200, 32))   # [B, H, T, D] compared
+ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}   # [B, H, T, D] timed
+ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -294,23 +337,24 @@ def random_tokens(seed: int, n: int, cfg, dev) -> torch.Tensor:
 
 
 def rollout(label: str, spec, model, states, b: int, steps: int, e2e: int,
-            blocks: int) -> tuple[float, tuple[int, int]]:
-    """The rollout with both launch counters set to 0 just before it; checks
-    they read (e2e, blocks) just after.  Returns its seconds and the counts."""
+            blocks: int, attn: int = 0) -> tuple[float, tuple[int, int, int]]:
+    """The rollout with the inference kernels' launch counters set to 0 just
+    before it; checks they read (e2e, blocks, attn) just after.  Returns its
+    seconds and the counts."""
     run = make_batch_rollout(spec, model, do_sample=False)
     torch.cuda.synchronize()
-    fused_gpt.launches = 0
-    fused_blocks.launches = 0
+    fused_gpt.launches = fused_blocks.launches = tatt.launches = 0
     t0 = time.perf_counter()
     final, met = run(states)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    got = (fused_gpt.launches, fused_blocks.launches)
+    got = (fused_gpt.launches, fused_blocks.launches, tatt.launches)
     log(f"[rollout] {label} B={b} A={A} steps={steps}: {dt:.3f} s, "
-        f"{b * steps / dt:.1f} env-steps/s, kernel launches e2e {got[0]} blocks {got[1]}")
-    if got != (e2e, blocks):
-        raise RuntimeError(f"rollout {label}: kernel launches (e2e, blocks) {got}, "
-                           f"expected {(e2e, blocks)}")
+        f"{b * steps / dt:.1f} env-steps/s, kernel launches e2e {got[0]} blocks {got[1]} "
+        f"attention {got[2]}")
+    if got != (e2e, blocks, attn):
+        raise RuntimeError(f"rollout {label}: kernel launches (e2e, blocks, attention) {got}, "
+                           f"expected {(e2e, blocks, attn)}")
     check_rollout(final, met, steps)
     log(f"[rollout] {label} CSR {met.csr.mean().item():.4f} ISR {met.isr.mean().item():.4f} "
         f"SoC {met.soc.mean().item():.2f} makespan {met.makespan.mean().item():.2f} "
@@ -326,7 +370,7 @@ def e2e_model(label: str, model, seed: int, dev) -> dict:
     rand = random_tokens(seed, B * A, cfg, dev)
     max_err = max(compare(f"{label} random tokens", w, rand),
                   compare(f"{label} reset-batch tokens", w, real))
-    dt, (launches, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
+    dt, (launches, _, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
 
     # timing: the rollout's own 512 contexts, then the benchmark's 8192
     ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=10)
@@ -371,8 +415,8 @@ def blocks_model(seed: int, dev) -> dict:
     check_close("85M blocks 3-layer chunk, stream", got, ref, floor=0.0, argmax=False)
 
     # one layer-stack launch per forward: the chunked route runs all 12 layers in one call
-    dt, (_, launches) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
-                                blocks=STEPS_85M)
+    dt, (_, launches, _) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
+                                   blocks=STEPS_85M)
 
     ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=5)
     log(f"[timing] 85M N={real.shape[0]}: forward {ms_step:.3f} ms of a "
@@ -396,8 +440,10 @@ def blocks_model(seed: int, dev) -> dict:
 
 
 def widths_phase(seed: int, dev) -> None:
-    """Three widths no published model has, each on the kernel cuda_plan
-    names, against the plain version; that kernel's counter exactly one."""
+    """Widths no published model has, each on the kernel cuda_plan names,
+    against the plain version, that kernel's counter exactly one; then the
+    whole forward timed at N_WIDTHS_TIME contexts beside its plain version
+    and its bound."""
     for e, h, layers in WIDTHS:
         cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
         model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e)),
@@ -413,6 +459,14 @@ def widths_phase(seed: int, dev) -> None:
         want = (1, 0) if kernel == "fused_gpt" else (0, 1)
         if got != want:
             raise RuntimeError(f"width {e}: launches (e2e, blocks) {got}, expected {want}")
+        tokens = random_tokens(seed + e, N_WIDTHS_TIME, cfg, dev)
+        ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=2)
+        plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
+                                    for c in tokens.split(256)], reps=1)
+        bound_ms, bound_by = e2e_bound(N_WIDTHS_TIME, w, cfg.block_size)
+        log(f"[timing] width E={e} H={h} L={layers} ({kernel}) N={N_WIDTHS_TIME}: forward "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.2f} % of bound")
 
 
 def train_stacks(model) -> fgt.TrainStacks:
@@ -486,24 +540,28 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
                                        xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
             bwd_err = max(bwd_err, err)
 
-    # the 85M's width: a 2-layer forward chunk mid-stack, a 1-layer backward chunk
-    cfg = CONFIGS["85M"]
-    model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed)), device=dev)
-    stacks = train_stacks(model).chunk(0, 2)
+    # other widths (the 85M's, head dims 16 and 96): a 2-layer forward chunk, a
+    # 1-layer backward chunk
     _, _, real = reset_batch(seed, B_85M, STEPS_85M, dev)
-    x = embed(model, real[:N_TRAIN_CMP["85M"]])
-    out, xsave = fgt.train_forward(x, stacks, last_only=False)
-    torch.cuda.synchronize()
-    ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
-    fwd_err = max(fwd_err,
-                  check_close_channels("85M width train forward 2 layers, stream", out, ref_out,
-                                       0),
-                  check_close_channels("85M width train forward xsave", xsave, ref_xsave, 1))
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    dxin = (torch.randn(out.shape, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
-    err, _ = compare_backward("85M width train backward layer 1", xsave[2:4].contiguous(), dxin,
-                              stacks.chunk(1, 2))
-    return fwd_err, max(bwd_err, err)
+    for label, (e, h) in TRAIN_WIDTHS.items():
+        cfg = GPTConfig(n_layer=2, n_head=h, n_embd=e)
+        gen = torch.Generator().manual_seed(seed if label == "85M width" else seed + e + h)
+        model = load_model(cfg, init_params(cfg, gen), device=dev)
+        stacks = train_stacks(model)
+        x = embed(model, real[:N_TRAIN_CMP["85M"]])
+        out, xsave = fgt.train_forward(x, stacks, last_only=False)
+        torch.cuda.synchronize()
+        ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
+        fwd_err = max(fwd_err,
+                      check_close_channels(f"{label} train forward 2 layers, stream", out,
+                                           ref_out, 0),
+                      check_close_channels(f"{label} train forward xsave", xsave, ref_xsave, 1))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dxin = (torch.randn(out.shape, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        err, _ = compare_backward(f"{label} train backward layer 1", xsave[2:4].contiguous(),
+                                  dxin, stacks.chunk(1, 2))
+        bwd_err = max(bwd_err, err)
+    return fwd_err, bwd_err
 
 
 def distill_shard(path: str, model, seed: int, b: int, steps: int, dev) -> int:
@@ -672,6 +730,124 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
     ]
 
 
+def check_attention(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """fp32 within rtol = atol = 1e-4 (tests/test_attention.py), bf16 within
+    0.01 * max|ref| + 1e-3; returns max |got - ref|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: kernel output {got.dtype} {tuple(got.shape)} not finite "
+                           f"or not {ref.dtype} {tuple(ref.shape)}")
+    diff = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        tol = 1e-4 + 1e-4 * ref.abs()
+    else:
+        tol = torch.full_like(diff, 0.01 * ref.float().abs().max().item() + 1e-3)
+    worst = (diff / tol).max().item()
+    log(f"[compare] {name}: max|err|={diff.max().item():.6f} worst err/tol={worst:.4f} "
+        f"(max|ref|={ref.float().abs().max().item():.3f})")
+    if worst > 1.0:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return diff.max().item()
+
+
+def attention_phase(seed: int, dev) -> float:
+    """The attention kernel against its plain version at ATT_SHAPES, fp32
+    and bf16, and at the 6M-like shape as the module's strided views.
+    Returns the largest max |err|."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    err = 0.0
+    for shape in ATT_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+        scale = 1.0 / math.sqrt(shape[-1])
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v)]
+            got = tatt.attention_pallas(*x, scale)
+            torch.cuda.synchronize()
+            err = max(err, check_attention(f"attention {list(shape)} {dtype}", got,
+                                           tatt.attention_einsum(*x, scale)))
+    b, h, t, d = ATT_SHAPES[1]
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+    x = [z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1)]
+    got = tatt.attention_pallas(*x, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    return max(err, check_attention(f"attention {[b, h, t, d]} bf16, strided views of q|k|v",
+                                    got, tatt.attention_einsum(*x, 1.0 / math.sqrt(d))))
+
+
+def module_route_phase(seed: int, dev) -> None:
+    """The trained 6M on the module route, attn_impl "pallas" against
+    "einsum", on phase 6's 512 contexts; 8 attention launches a forward."""
+    cfg, sd = load_reference_checkpoint(CKPT_6M)
+    forwards = {impl: make_forward(load_model(dataclasses.replace(cfg, attn_impl=impl), sd,
+                                              device=dev), use_fused=False)
+                for impl in ("pallas", "einsum")}
+    _, _, real = reset_batch(seed, B, STEPS, dev)
+    for label, tokens in (("reset-batch", real), ("random", random_tokens(seed, B * A, cfg, dev))):
+        torch.cuda.synchronize()
+        tatt.launches = 0
+        got = forwards["pallas"](tokens)
+        torch.cuda.synchronize()
+        if tatt.launches != cfg.n_layer:
+            raise RuntimeError(f"module route: {tatt.launches} attention launches in a "
+                               f"forward, expected {cfg.n_layer}")
+        check_close(f"6M module route, attn_impl pallas vs einsum, {label} tokens", got,
+                    forwards["einsum"](tokens), floor=0.02, argmax=True)
+
+
+def bias_rollout_phase(seed: int, dev) -> tuple[int, float]:
+    """A bias=True, attn_impl="pallas" model at the 6M's width and depth
+    through make_batch_rollout: the attention kernel once a layer and step,
+    neither fused kernel.  Returns the attention launches and the rollout's
+    seconds."""
+    cfg = dataclasses.replace(CONFIGS["6M"], bias=True, attn_impl="pallas")
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_params(cfg, gen)
+    for name in sd:
+        if name.endswith(".bias"):
+            sd[name] = torch.randn(sd[name].shape, generator=gen) * 0.02
+    model = load_model(cfg, sd, device=dev)
+    spec, states, real = reset_batch(seed, B, STEPS, dev)
+    einsum = load_model(dataclasses.replace(cfg, attn_impl="einsum"), sd, device=dev)
+    check_close("6M-width bias=True, attn_impl pallas vs einsum, reset-batch tokens",
+                make_forward(model)(real), make_forward(einsum)(real), floor=0.02, argmax=True)
+    dt, (_, _, launches) = rollout("6M-width bias=True attn_impl=pallas (module route)", spec,
+                                   model, states, B, STEPS, e2e=0, blocks=0,
+                                   attn=cfg.n_layer * STEPS)
+    forward = make_forward(model)
+    ms = cuda_ms(lambda: forward(real), reps=10)
+    log(f"[timing] 6M-width bias=True module route N={real.shape[0]}: forward {ms:.3f} ms of a "
+        f"{1e3 * dt / STEPS:.3f} ms rollout step")
+    return launches, dt
+
+
+def attention_timing(seed: int, dev, launches: int, max_err: float) -> dict:
+    """The attention kernel at ATT_TIME in bf16, beside its plain version,
+    one scaled_dot_product_attention call and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = {}
+    for label, (b, h, t, d) in ATT_TIME.items():
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(d)
+        chunk = max(1, ATT_PLAIN_PAIRS // h)
+        ms = cuda_ms(lambda: tatt.attention_pallas(q, k, v, scale), reps=5)
+        plain_ms = cuda_ms(lambda: [tatt.attention_einsum(q[i:i + chunk], k[i:i + chunk],
+                                                          v[i:i + chunk], scale)
+                                    for i in range(0, b, chunk)], reps=1)
+        sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale), reps=5)
+        n = b * h
+        bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
+        log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] bf16: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+        rows[label] = {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms}
+    return {"name": "attention", "model": "bias=True 6M width, attn_impl=pallas",
+            "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/attention.cu",
+            "replaces": "mapf_gpt_tpu/ops/attention.py:37", "launches": launches,
+            "max_abs_err": max_err, **rows["2M"], "at_85m_shape": rows["85M"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -691,7 +867,8 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2. build: every source, and the widths of phase 8, one nvcc each, together
+    # 2. build: every source (attention.cu among them), and the widths of phase 8, one
+    # nvcc each, together
     sources = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
     jobs = [(name, None) for name in sources]
     for e, h, layers in WIDTHS:
@@ -710,6 +887,9 @@ def main() -> int:
     log(f"[build] fused_gpt kernel config {fused_gpt.kernel_config()}")
     log(f"[build] fused_blocks kernel config {fused_blocks.kernel_config()}")
 
+    # 12. the attention kernel against its plain version, first
+    att_err = attention_phase(args.seed, dev)
+
     # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
     model_2m = load_model(cfg, sd, device=dev)
@@ -726,6 +906,12 @@ def main() -> int:
     trainer = trainer_phase(model_6m, args.seed, dev)
     entries += train_timing(model_6m.train().requires_grad_(), args.seed, dev, fwd_err, bwd_err,
                             trainer)
+    log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
+
+    # 13. the module route with attn_impl="pallas"; 14. the bias=True rollout; 15. timing
+    module_route_phase(args.seed, dev)
+    att_launches, _ = bias_rollout_phase(args.seed, dev)
+    entries.append(attention_timing(args.seed, dev, att_launches, att_err))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     log(nvidia_smi_line())

@@ -2,8 +2,10 @@
 // layers -> bf16 [N, 256, E], or [N, 1, E] (the last position) with the
 // chunk's final layer thinned.  Built with no defines for the 85M's width
 // (E=768, head dim 64, 12 heads); -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh>
-// build another width (E a multiple of 128, head dim 32 or 64; the static
-// asserts below, which ops/fused_blocks.py checks before it starts nvcc).
+// build another width (E a multiple of 32, head dim a multiple of 16 up to
+// 128, the thin attention's scores within a block's shared memory; the
+// static asserts below, which ops/fused_blocks.py checks before it starts
+// nvcc).
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/fused_gpt.py::_block_kernel and
 // computes what it computes, per layer:
@@ -36,15 +38,19 @@
 //   * gemm_kernel: C = epilogue(A @ W) on the tensor cores, WMMA bf16
 //     16x16x16 tiles (mma.sync), a 128 x 128 block tile of 8 warps (64 x 32
 //     each), the K loop 32 deep with A and B double-buffered in shared
-//     memory (B by cp.async).  Its prologue can compute the rows' LayerNorm
-//     statistics and apply LN * g to the A tiles as they are staged (LN1 ->
-//     QKV, LN2 -> fc); its epilogue rounds to bf16 and applies tanh GELU
-//     (fc) or the residual add (projection, fc2);
+//     memory (B by cp.async), columns past N zero in the B tile and not
+//     stored, so N needs only be a multiple of a warp's 32 columns (a warp
+//     whose columns all lie past N skips its products).  Its prologue can
+//     compute the rows' LayerNorm statistics and apply LN * g to the A
+//     tiles as they are staged (LN1 -> QKV, LN2 -> fc); its epilogue rounds
+//     to bf16 and applies tanh GELU (fc) or the residual add (projection,
+//     fc2);
 //   * attention_kernel: one (context, head, 128-row block) a CTA, 16 query
 //     rows a warp, the scores of 128 keys at a time, so the 256x256 score
 //     matrix is never stored;
 //   * thin_attention_kernel: the last position's attention, one context a
-//     CTA, in fp32 on the CUDA cores.
+//     CTA, in fp32 on the CUDA cores, its H x 256 scores in dynamic shared
+//     memory.
 // A full layer is 5 kernel launches per group (LN1+QKV, attention,
 // projection, LN2+fc, fc2), the thinned layer 6 (LN1+K|V over all rows,
 // LN1+Q of the last rows, attention, projection, LN2+fc, fc2).  One call of
@@ -88,13 +94,13 @@ constexpr int WM = 64, WN = 32;           // warp tile; 2 x 4 warps
 constexpr int GEMM_THREADS = 256;
 constexpr int LDA_S = BK + 8;             // padded shared-memory rows
 constexpr int LDB_S = BN + 8;
-static_assert(E % BN == 0 && E3 % BN == 0 && F % BN == 0, "N tiles");
-static_assert(E % BK == 0 && F % BK == 0, "K tiles");
-static_assert(E % 128 == 0, "LN: 8 values a lane per 256 columns, the last 256 maybe half");
-static_assert(DH == 32 || DH == 64, "head dim 32 or 64");
+constexpr int SMEM_MAX = 232448;          // shared memory a block can have on sm_90
+static_assert(E % 32 == 0, "N: whole warp column tiles (WN); K: whole BK tiles; LN: 8-value chunks");
+static_assert(DH % 16 == 0 && DH <= 128, "head dim a multiple of 16 up to 128");
 static_assert(E % DH == 0, "whole heads");
 constexpr int LN_J = (E + 255) / 256;    // 8-value chunks a lane holds in the LN prologue
-static_assert((E + H * T + H) * 4 <= 48 * 1024, "thin attention: static shared memory");
+constexpr int THIN_SMEM = (E + H * T + H) * 4;
+static_assert(THIN_SMEM <= SMEM_MAX, "thin attention: dynamic shared memory");
 
 // attention tiles
 constexpr int ATT_WARPS = 8;
@@ -188,16 +194,20 @@ struct GemmSmem {
 // K == E).  Epilogues: EPI_ROUND  C = bf16(acc)
 //                      EPI_GELU   C = bf16(gelu_tanh(bf16(acc)))
 //                      EPI_RESID  C = bf16(R + bf16(acc))  (R may be C)
-// N is a multiple of BN and K of BK; rows past M are skipped.
+// N is a multiple of 32 and K of BK; rows past M and columns past N are
+// skipped.
+// Two blocks an SM: at most 128 registers a thread (the masking of N costs
+// two more otherwise, and the third would halve the blocks an SM holds).
 template <bool LN, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
             const bf16* __restrict__ W, int ldw, const bf16* R, int ldr, bf16* C, int ldc,
-            int M, int K) {
+            int M, int N, int K) {
   __shared__ __align__(128) GemmSmem sm;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm = warp >> 2, wn = warp & 3;
+  const bool live = n0 + wn * WN < N;   // the warp has columns to compute
 
   if (LN) {
     // the rows' mean and 1/std: two-pass, fp32, a warp per row
@@ -269,7 +279,11 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = tid + i * GEMM_THREADS, kr = c >> 4, col = (c & 15) * 8;
-      cp_async16(&sm.b[s][kr * LDB_S + col], W + (size_t)(k0 + kr) * ldw + n0 + col);
+      bf16* dst = &sm.b[s][kr * LDB_S + col];
+      if (n0 + col < N)
+        cp_async16(dst, W + (size_t)(k0 + kr) * ldw + n0 + col);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
     cp_async_commit();
   };
@@ -293,20 +307,22 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
       load_b(nxt, (kt + 1) * BK);
       load_a((kt + 1) * BK);
     }
+    if (live) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA fa[WM / 16];
-      FragB fb[WN / 16];
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        FragA fa[WM / 16];
+        FragB fb[WN / 16];
 #pragma unroll
-      for (int i = 0; i < WM / 16; ++i)
-        wmma::load_matrix_sync(fa[i], &sm.a[cur][(wm * WM + i * 16) * LDA_S + kk * 16], LDA_S);
+        for (int i = 0; i < WM / 16; ++i)
+          wmma::load_matrix_sync(fa[i], &sm.a[cur][(wm * WM + i * 16) * LDA_S + kk * 16], LDA_S);
 #pragma unroll
-      for (int j = 0; j < WN / 16; ++j)
-        wmma::load_matrix_sync(fb[j], &sm.b[cur][kk * 16 * LDB_S + wn * WN + j * 16], LDB_S);
+        for (int j = 0; j < WN / 16; ++j)
+          wmma::load_matrix_sync(fb[j], &sm.b[cur][kk * 16 * LDB_S + wn * WN + j * 16], LDB_S);
 #pragma unroll
-      for (int i = 0; i < WM / 16; ++i)
+        for (int i = 0; i < WM / 16; ++i)
 #pragma unroll
-        for (int j = 0; j < WN / 16; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+          for (int j = 0; j < WN / 16; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
     }
     if (more) {
       store_a(nxt, (kt + 1) * BK);
@@ -315,6 +331,7 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
     __syncthreads();
   }
 
+  if (!live) return;
   float* stage = sm.stage[warp];
 #pragma unroll
   for (int i = 0; i < WM / 16; ++i)
@@ -324,7 +341,7 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
       frag_to_lane8(acc[i][j], stage, v);
       const int row = m0 + wm * WM + i * 16 + lane_row();
       const int col = n0 + wn * WN + j * 16 + lane_col();
-      if (row < M) {
+      if (row < M && col < N) {
         if (EPI == EPI_GELU) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] = gelu_tanh(rbf(v[e]));
@@ -410,13 +427,15 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ att) {
 }
 
 // Attention of the last position, one context a CTA: att_last[c] from
-// q_last [n, E] and the K/V of qkv [n, T, 3E].
+// q_last [n, E] and the K/V of qkv [n, T, 3E]; THIN_SMEM bytes of dynamic
+// shared memory.
 __global__ void __launch_bounds__(256)
 thin_attention_kernel(const bf16* __restrict__ q_last, const bf16* __restrict__ qkv,
                       bf16* __restrict__ att_last) {
-  __shared__ float q_s[E];
-  __shared__ float p_s[H * T];
-  __shared__ float den_s[H];
+  extern __shared__ __align__(16) float thin_s[];
+  float* q_s = thin_s;        // [E]
+  float* p_s = q_s + E;       // [H * T]
+  float* den_s = p_s + H * T; // [H]
   const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* kv = qkv + (size_t)c * T * E3;
   for (int j = tid; j < E; j += blockDim.x) q_s[j] = __bfloat162float(q_last[(size_t)c * E + j]);
@@ -447,9 +466,9 @@ thin_attention_kernel(const bf16* __restrict__ q_last, const bf16* __restrict__ 
 template <bool LN, int EPI>
 cudaError_t gemm(const bf16* A, int lda, const float* g, const bf16* W, int ldw, const bf16* R,
                  int ldr, bf16* C, int ldc, int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<LN, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, g, W, ldw, R, ldr, C, ldc,
-                                                          M, K);
+                                                          M, N, K);
   return cudaGetLastError();
 }
 
@@ -489,6 +508,8 @@ int fused_blocks_forward(bf16* x, bf16* out_last, const bf16* wqkv, const bf16* 
                          bf16* workspace, int n, int layers, int last_only, int group,
                          cudaStream_t stream) {
   if (group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(thin_attention_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, THIN_SMEM));
   bf16* qkv = workspace;
   bf16* att = qkv + (size_t)group * T * E3;
   bf16* hid = att + (size_t)group * T * E;
@@ -525,7 +546,7 @@ int fused_blocks_forward(bf16* x, bf16* out_last, const bf16* wqkv, const bf16* 
                                              2 * E, E, stream)));
       RETURN_IF_ERROR((gemm<true, EPI_ROUND>(xlast, T * E, G1, Wqkv, E3, nullptr, 0, q_last, E,
                                              nc, E, E, stream)));
-      thin_attention_kernel<<<nc, 256, 0, stream>>>(q_last, qkv, att_last);
+      thin_attention_kernel<<<nc, 256, THIN_SMEM, stream>>>(q_last, qkv, att_last);
       RETURN_IF_ERROR(cudaGetLastError());
       RETURN_IF_ERROR((gemm<false, EPI_RESID>(att_last, E, nullptr, Wproj, E, xlast, T * E, xl,
                                               E, nc, E, E, stream)));

@@ -66,8 +66,8 @@
 //     ds, write dq and keep ds and bf16(P) in the workspace for
 //     attn_bwd_dkv_kernel, which sums dk = ds^T Q and dv = P^T dA over all
 //     query rows for 16 keys a warp.
-// Head dim 32 or 64 (a template), T a multiple of 64 up to 256, E a multiple
-// of 32.  This first version leaves wgmma, TMA and fusing the group's
+// Head dim a multiple of 16 up to 128 (a template), T a multiple of 64 up
+// to 256, E a multiple of 32.  This first version leaves wgmma, TMA and fusing the group's
 // intermediates to later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -79,6 +79,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -784,7 +785,22 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H
 bool shape_ok(int T, int E, int H) {
   if (H <= 0 || E % H || E % 32 || T % ATT_ROWS || T > T_MAX || T <= 0) return false;
   const int dh = E / H;
-  return dh == 32 || dh == 64;
+  return dh % 16 == 0 && dh <= 128;
+}
+
+// f(std::integral_constant<int, DH>()) for the head dim dh (shape_ok holds).
+template <typename Fn>
+int with_head_dim(int dh, Fn f) {
+  switch (dh) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    default: return f(std::integral_constant<int, 128>());
+  }
 }
 
 template <int DH>
@@ -940,11 +956,10 @@ int fused_train_forward(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv,
                         int last_only, int group, cudaStream_t stream) {
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  if (E / H == 32)
-    return forward_impl<32>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws, n, T, E, layers,
-                            last_only, group, stream);
-  return forward_impl<64>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws, n, T, E, layers,
-                          last_only, group, stream);
+  return with_head_dim(E / H, [&](auto dh) {
+    return forward_impl<decltype(dh)::value>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws,
+                                             n, T, E, layers, last_only, group, stream);
+  });
 }
 
 // Backward of a chunk: xsave [2 layers, n, T, E] and dxin [n, T, E] (the
@@ -958,11 +973,11 @@ int fused_train_backward(const bf16* xsave, const bf16* dxin, const bf16* wqkv,
                          int E, int H, int layers, int group, cudaStream_t stream) {
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  if (E / H == 32)
-    return backward_impl<32>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0, dwqkv, dwproj,
-                             dwfc, dwfc2, dg1, dg2, ws, n, T, E, layers, group, stream);
-  return backward_impl<64>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0, dwqkv, dwproj,
-                           dwfc, dwfc2, dg1, dg2, ws, n, T, E, layers, group, stream);
+  return with_head_dim(E / H, [&](auto dh) {
+    return backward_impl<decltype(dh)::value>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0,
+                                              dwqkv, dwproj, dwfc, dwfc2, dg1, dg2, ws, n, T, E,
+                                              layers, group, stream);
+  });
 }
 
 const char* fused_train_error_string(int code) {

@@ -3,12 +3,15 @@
 - :func:`params_to_state_dict` takes the JAX package's flax params (a nested
   dict of numpy arrays, with or without the top ``"params"`` level) and
   returns the port's state dict in the reference key layout (the inverse of
-  ``mapf_gpt_tpu/models/convert.py::torch_state_dict_to_params``).
+  ``mapf_gpt_tpu/models/convert.py::torch_state_dict_to_params``); with
+  ``bias=True`` the Dense and LayerNorm ``bias`` leaves become the
+  ``.bias`` keys.
 - :func:`state_dict_to_params` is its inverse: a state dict (or a model's
   gradients, :func:`grads_to_params`) -> the flax layout as numpy arrays,
   under a top ``"params"`` level, so port and JAX trees compare key by key.
 - :func:`load_reference_checkpoint` reads a reference-layout ``.pt``
-  (``{"model": state_dict, "model_args": {...}, ...}``) with torch alone.
+  (``{"model": state_dict, "model_args": {...}, ...}``) with torch alone,
+  ``bias`` taken from its ``model_args``.
 - :func:`load_model` builds the :class:`GPT` from either on a device, for
   inference (frozen parameters).
 
@@ -30,22 +33,30 @@ def strip_prefix(state_dict: dict, prefix: str = "_orig_mod.") -> dict:
             for k, v in state_dict.items()}
 
 
+_LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"), ("mlp", "c_proj"))
+
+
 def params_to_state_dict(params: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
-    """Flax params (nested dict of numpy arrays) -> reference-layout state dict."""
+    """Flax params (nested dict of numpy arrays) -> reference-layout state
+    dict, with the biases when ``cfg.bias``."""
     p = params["params"] if "params" in params else params
     t32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
-    sd = {
-        "transformer.wte.weight": t32(p["wte"]),
-        "transformer.wpe.weight": t32(p["wpe"]),
-        "transformer.ln_f.weight": t32(p["ln_f"]["scale"]),
-    }
+
+    def ln(key: str, leaf: dict) -> None:
+        sd[f"{key}.weight"] = t32(leaf["scale"])
+        if cfg.bias:
+            sd[f"{key}.bias"] = t32(leaf["bias"])
+
+    sd = {"transformer.wte.weight": t32(p["wte"]), "transformer.wpe.weight": t32(p["wpe"])}
+    ln("transformer.ln_f", p["ln_f"])
     for i in range(cfg.n_layer):
         b, t = p[f"h_{i}"], f"transformer.h.{i}"
-        sd[f"{t}.ln_1.weight"] = t32(b["ln_1"]["scale"])
-        sd[f"{t}.ln_2.weight"] = t32(b["ln_2"]["scale"])
-        for mod, sub in (("attn", "c_attn"), ("attn", "c_proj"),
-                         ("mlp", "c_fc"), ("mlp", "c_proj")):
+        ln(f"{t}.ln_1", b["ln_1"])
+        ln(f"{t}.ln_2", b["ln_2"])
+        for mod, sub in _LINEARS:
             sd[f"{t}.{mod}.{sub}.weight"] = t32(np.asarray(b[mod][sub]["kernel"]).T)
+            if cfg.bias:
+                sd[f"{t}.{mod}.{sub}.bias"] = t32(b[mod][sub]["bias"])
     sd["lm_head.weight"] = sd["transformer.wte.weight"]
     return sd
 
@@ -55,15 +66,23 @@ def state_dict_to_params(sd: dict, cfg: GPTConfig) -> dict:
     numpy arrays (the inverse of :func:`params_to_state_dict`)."""
     sd = strip_prefix(sd)
     a = lambda k: sd[k].detach().float().cpu().numpy()
+
+    def ln(key: str) -> dict:
+        leaf = {"scale": a(f"{key}.weight")}
+        if cfg.bias:
+            leaf["bias"] = a(f"{key}.bias")
+        return leaf
+
     p = {"wte": a("transformer.wte.weight"), "wpe": a("transformer.wpe.weight"),
-         "ln_f": {"scale": a("transformer.ln_f.weight")}}
+         "ln_f": ln("transformer.ln_f")}
     for i in range(cfg.n_layer):
         t = f"transformer.h.{i}"
-        b = {"ln_1": {"scale": a(f"{t}.ln_1.weight")}, "ln_2": {"scale": a(f"{t}.ln_2.weight")},
-             "attn": {}, "mlp": {}}
-        for mod, sub in (("attn", "c_attn"), ("attn", "c_proj"),
-                         ("mlp", "c_fc"), ("mlp", "c_proj")):
-            b[mod][sub] = {"kernel": np.ascontiguousarray(a(f"{t}.{mod}.{sub}.weight").T)}
+        b = {"ln_1": ln(f"{t}.ln_1"), "ln_2": ln(f"{t}.ln_2"), "attn": {}, "mlp": {}}
+        for mod, sub in _LINEARS:
+            key = f"{t}.{mod}.{sub}"
+            b[mod][sub] = {"kernel": np.ascontiguousarray(a(f"{key}.weight").T)}
+            if cfg.bias:
+                b[mod][sub]["bias"] = a(f"{key}.bias")
         p[f"h_{i}"] = b
     return {"params": p}
 
@@ -80,12 +99,10 @@ def load_reference_checkpoint(path: str) -> tuple[GPTConfig, dict[str, torch.Ten
     """Read a reference ``.pt`` -> (GPTConfig, fp32 state dict on the CPU)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     args = dict(ckpt["model_args"])
-    if args.get("bias", False):
-        raise ValueError(f"{path}: bias=True models are not supported")
     cfg = GPTConfig(block_size=args.get("block_size", 256),
                     vocab_size=args.get("vocab_size", 67),
                     n_layer=args["n_layer"], n_head=args["n_head"],
-                    n_embd=args["n_embd"])
+                    n_embd=args["n_embd"], bias=bool(args.get("bias", False)))
     sd = {k: v.detach().float() for k, v in strip_prefix(ckpt["model"]).items()}
     return cfg, sd
 

@@ -1,15 +1,20 @@
 """Non-causal GPT policy as an ``nn.Module`` in the reference key layout.
 
 Port of ``mapf_gpt_tpu/models/gpt.py``: learned token and position
-embeddings, pre-LN blocks with bias-free LayerNorm (eps 1e-5), fused QKV,
-non-causal attention, 4x erf-GELU MLP, and the head tied to the token
-embedding, computed at the last position only.  Parameters are fp32;
-activations run in ``cfg.dtype`` (bf16 by default) with fp32 LayerNorm,
-softmax and logits, as the flax module does.
+embeddings, pre-LN blocks (LayerNorm eps 1e-5), fused QKV, non-causal
+attention (``ops/attention.py``: the plain version for ``attn_impl`` "auto"
+and "einsum", the hand-written kernel for "pallas"), 4x erf-GELU MLP, and
+the head tied to the token embedding, computed at the last position only.
+With ``bias=True`` the four Linears and the three LayerNorms carry biases
+(zeros at init, as flax's).  Parameters are fp32; activations run in
+``cfg.dtype`` (bf16 by default) with fp32 LayerNorm, softmax and logits, as
+the flax module does.  Token ids are read as JAX indexing reads
+``wte[idx]``: a negative id wraps once, then ids are clamped to the table.
 
 The state dict keys are the reference's (``transformer.wte.weight``,
-``transformer.h.{i}.attn.c_attn.weight``, ..., ``lm_head.weight``), so the
-committed ``checkpoints/MAPF-GPT-*.pt`` load with ``strict=True``.
+``transformer.h.{i}.attn.c_attn.weight``, ``.bias`` with ``bias=True``,
+..., ``lm_head.weight``), so the committed ``checkpoints/MAPF-GPT-*.pt``
+load with ``strict=True``.
 
 Model family: 2M: 5L/5H/160d   6M: 8L/8H/256d   85M: 12L/12H/768d
 """
@@ -23,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mapf_gpt_tpu_torch.ops.attention import attention
+from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, jax_index, stack_weights
 from mapf_gpt_tpu_torch.ops.vocab import CONTEXT_SIZE, NUM_ACTIONS, VOCAB_SIZE
 
 
@@ -36,7 +43,7 @@ class GPTConfig:
     dropout: float = 0.0
     bias: bool = False
     dtype: torch.dtype = torch.bfloat16   # activation/compute dtype
-    attn_impl: str = "auto"               # "auto" | "einsum": the plain attention below
+    attn_impl: str = "auto"               # "auto" | "einsum" | "pallas" (ops/attention.py)
 
 
 CONFIGS = {
@@ -47,26 +54,29 @@ CONFIGS = {
 
 
 class LayerNorm(nn.Module):
-    """Bias-free LayerNorm computed in fp32."""
+    """LayerNorm computed in fp32, with a bias when the config has one."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n)) if bias else None
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight, None, 1e-5)
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, 1e-5)
 
 
 def _linear(x, layer: nn.Linear, dtype):
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
+    """flax Dense in `dtype`: the product rounded, then the bias added."""
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
-        self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, bias=False)
-        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, bias=False)
+        self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, bias=cfg.bias)
+        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, bias=cfg.bias)
 
     def forward(self, x):
         cfg = self.cfg
@@ -75,18 +85,16 @@ class SelfAttention(nn.Module):
         qkv = _linear(x, self.c_attn, cfg.dtype)
         q, k, v = (z.reshape(b, t, nh, hd).transpose(1, 2)
                    for z in qkv.split(cfg.n_embd, dim=-1))   # [B, H, T, D]
-        att = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-        att = torch.softmax(att, dim=-1)
-        y = (att.to(cfg.dtype) @ v).transpose(1, 2).reshape(b, t, c)
-        return _linear(y, self.c_proj, cfg.dtype)
+        y = attention(q, k, v, 1.0 / math.sqrt(hd), cfg.attn_impl)
+        return _linear(y.transpose(1, 2).reshape(b, t, c), self.c_proj, cfg.dtype)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.cfg = cfg
-        self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, bias=False)
-        self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, bias=False)
+        self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, bias=cfg.bias)
+        self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, bias=cfg.bias)
 
     def forward(self, x):
         h = F.gelu(_linear(x, self.c_fc, self.cfg.dtype))   # erf form, as torch nn.GELU()
@@ -96,9 +104,9 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        self.ln_1 = LayerNorm(cfg.n_embd)
+        self.ln_1 = LayerNorm(cfg.n_embd, cfg.bias)
         self.attn = SelfAttention(cfg)
-        self.ln_2 = LayerNorm(cfg.n_embd)
+        self.ln_2 = LayerNorm(cfg.n_embd, cfg.bias)
         self.mlp = MLP(cfg)
 
     def forward(self, x):
@@ -109,18 +117,18 @@ class Block(nn.Module):
 class GPT(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.bias or cfg.dropout > 0.0:
-            raise NotImplementedError("GPT: bias=True and dropout > 0 are not ported yet")
-        if cfg.attn_impl not in ("auto", "einsum"):
-            # "pallas" is the JAX package's standalone attention kernel
+        if cfg.dropout > 0.0:
+            raise NotImplementedError("GPT: dropout > 0 is not ported yet")
+        if cfg.attn_impl not in ("auto", "einsum", "pallas"):
             raise NotImplementedError(f"GPT: attn_impl={cfg.attn_impl!r} is not ported; "
-                                      "'auto' and 'einsum' run the plain attention")
+                                      "'auto' and 'einsum' run the plain attention, "
+                                      "'pallas' the attention kernel")
         self.cfg = cfg
         self.transformer = nn.ModuleDict(dict(
             wte=nn.Embedding(cfg.vocab_size, cfg.n_embd),
             wpe=nn.Embedding(cfg.block_size, cfg.n_embd),
             h=nn.ModuleList([Block(cfg) for _ in range(cfg.n_layer)]),
-            ln_f=LayerNorm(cfg.n_embd),
+            ln_f=LayerNorm(cfg.n_embd, cfg.bias),
         ))
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.transformer.wte.weight   # weight tying
@@ -131,7 +139,8 @@ class GPT(nn.Module):
         [B, T, vocab] when not last_only."""
         tr = self.transformer
         t = idx.shape[1]
-        x = (tr.wte(idx.long()) + tr.wpe.weight[:t]).to(self.cfg.dtype)
+        x = (F.embedding(jax_index(idx, self.cfg.vocab_size), tr.wte.weight)
+             + tr.wpe.weight[:t]).to(self.cfg.dtype)
         for block in tr.h:
             x = block(x)
         x = tr.ln_f(x[:, -1, :] if last_only else x)
@@ -146,19 +155,32 @@ class GPT(nn.Module):
         return n
 
 
-def make_forward(model: GPT):
+def uses_fused(cfg: GPTConfig, device_type: str) -> bool:
+    """The JAX package's route rule (its ``make_forward`` and
+    ``select_loss_fn``): the fused kernels on CUDA for bias-free, dropout-0
+    models whose heads divide the width; the module otherwise."""
+    return (device_type == "cuda" and not cfg.bias and cfg.dropout == 0.0
+            and cfg.n_embd % cfg.n_head == 0)
+
+
+def make_forward(model: GPT, use_fused: bool | None = None):
     """Inference forward: tokens [N, T] -> logits [N, vocab] at the last
     position.
 
-    With the model on CUDA this runs the hand-written kernels through
-    ``ops/fused_gpt.fused_logits`` on weights stacked once here: the e2e
-    kernel for the 2M and 6M, the layer-stack kernel for the 85M, each
-    built for the model's width on first use; a width neither can hold
-    raises.  On the CPU it runs the module itself (erf GELU), as the JAX
-    package runs the flax module there.  No autograd graph is built."""
-    if model.lm_head.weight.device.type == "cuda":
-        from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, stack_weights
-
+    The route is :func:`uses_fused`'s unless `use_fused` says otherwise.
+    Fused: the hand-written kernels through ``ops/fused_gpt.fused_logits``
+    on weights stacked once here (the e2e kernel for the 2M and 6M, the
+    layer-stack kernel for the 85M, each built for the model's width on
+    first use; on the CPU their plain versions).  Otherwise the module
+    itself, on the model's device: erf GELU, biases, and on CUDA with
+    ``attn_impl="pallas"`` the attention kernel once a layer.  No autograd
+    graph is built."""
+    cfg = model.cfg
+    if use_fused is None:
+        use_fused = uses_fused(cfg, model.lm_head.weight.device.type)
+    if use_fused:
+        if cfg.bias:
+            raise ValueError("make_forward: the fused kernels have no biases")
         weights = stack_weights(model)
         forward = lambda tokens: fused_logits(weights, tokens)
     else:
@@ -175,13 +197,18 @@ def init_params(cfg: GPTConfig, generator: torch.Generator) -> dict[str, torch.T
     """Random fp32 weights in the reference key layout, by the JAX package's
     ``init_params`` scheme: normal(0.02) for every embedding and linear
     weight, the residual projections (``c_proj``) scaled by 1/sqrt(2L),
-    LayerNorm gains 1.  Drawn from `generator`, on its device."""
+    LayerNorm gains 1, biases 0 (flax's defaults).  Drawn from `generator`,
+    on its device; the biases draw nothing, so a bias=True config gets the
+    weights of its bias-free twin."""
     scale = 1.0 / math.sqrt(2.0 * cfg.n_layer)
     sd = {}
     # the tied head is listed once, as the token embedding
     for name, p in GPT(cfg).named_parameters():
         if name.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight")):
             sd[name] = torch.ones(p.shape, device=generator.device)
+            continue
+        if name.endswith(".bias"):
+            sd[name] = torch.zeros(p.shape, device=generator.device)
             continue
         w = torch.randn(p.shape, generator=generator, device=generator.device) * 0.02
         sd[name] = w * scale if name.endswith("c_proj.weight") else w

@@ -24,8 +24,9 @@ The kernel is built for the width of the stacks it is given, on first use:
 the 85M's (E=768, head dim 64) from the source as it stands, any other as a
 library of its own (``-DFUSED_BLOCKS_E``, ``-DFUSED_BLOCKS_DH``).
 :func:`check_width` raises, before ``nvcc`` starts, for a width the kernel
-cannot hold (T other than 256, E not a multiple of 128, head dim other than
-32 or 64).  The plain version takes any shape.
+cannot hold (T other than 256, E not a multiple of 32, head dim not a
+multiple of 16 up to 128, or the thin attention's H x T fp32 scores over a
+block's 227 KB of shared memory).  The plain version takes any shape.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 _T = 256                     # the context length the kernel is built for
 _DEFAULT_WIDTH = (768, 64)   # (n_embd, head dim) the source builds with no defines
+_SMEM_LIMIT = 232448         # shared memory a block can have on sm_90
 
 
 def check_width(t: int, e: int, n_head: int) -> None:
@@ -131,13 +133,13 @@ def check_width(t: int, e: int, n_head: int) -> None:
     if n_head <= 0 or e % n_head:
         raise ValueError(f"fused_blocks: n_embd {e} is not a multiple of n_head {n_head}")
     dh = e // n_head
-    if dh not in (32, 64):
-        raise ValueError(f"fused_blocks: head dim must be 32 or 64; got {dh}")
-    if e % 128:
-        raise ValueError(f"fused_blocks: n_embd must be a multiple of 128; got {e}")
-    if (e + n_head * t + n_head) * 4 > 48 * 1024:
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"fused_blocks: head dim must be a multiple of 16 up to 128; got {dh}")
+    if e % 32:
+        raise ValueError(f"fused_blocks: n_embd must be a multiple of 32; got {e}")
+    if (e + n_head * t + n_head) * 4 > _SMEM_LIMIT:
         raise ValueError(f"fused_blocks: {n_head} heads x T={t} exceed the thin attention's "
-                         "48 KB of static shared memory")
+                         f"{_SMEM_LIMIT} bytes of shared memory")
 
 
 def kernel_defines(e: int, n_head: int) -> dict[str, int]:

@@ -237,8 +237,11 @@ def check_train_width(t: int, e: int, n_head: int) -> None:
         raise ValueError(f"fused_train: T must be a multiple of 64 up to 256; got {t}")
     if n_head <= 0 or e % n_head:
         raise ValueError(f"fused_train: n_embd {e} is not a multiple of n_head {n_head}")
-    if e // n_head not in (32, 64):
-        raise ValueError(f"fused_train: head dim must be 32 or 64; got {e // n_head}")
+    if e % 32:
+        raise ValueError(f"fused_train: n_embd must be a multiple of 32; got {e}")
+    dh = e // n_head
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"fused_train: head dim must be a multiple of 16 up to 128; got {dh}")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -14,7 +14,7 @@ Port of ``mapf_gpt_tpu/train/train_step.py``, with the same semantics:
 - the loss: cross-entropy at the last position.  ``select_loss_fn`` makes
   the JAX package's choice: the fused kernels (``ops/fused_gpt_train.py``)
   on CUDA for bias-free, dropout-0 configs, the module with autograd
-  elsewhere (the CPU).
+  elsewhere (the CPU, ``bias=True``).
 
 The optimizer is written out rather than taken from ``torch.optim.AdamW``
 so that its arithmetic is optax's: the clip divides by the norm with no
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mapf_gpt_tpu_torch.models.gpt import GPT
+from mapf_gpt_tpu_torch.models.gpt import GPT, uses_fused
 
 
 class TrainConfig(NamedTuple):
@@ -123,11 +123,13 @@ def loss_fn(model: GPT, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Te
 
 def select_loss_fn(model: GPT, use_fused: bool | None = None) -> Callable:
     """The fused kernels' loss on CUDA for bias-free, dropout-0 configs
-    whose heads divide the width, the module's loss otherwise (the CPU)."""
-    cfg = model.cfg
+    whose heads divide the width (``models.gpt.uses_fused``), the module's
+    loss with autograd otherwise: the CPU, and ``bias=True`` on CUDA, whose
+    Linears run on ``torch.matmul`` and whose attention is the plain
+    version ("auto", "einsum"); "pallas" raises there, as the JAX kernel
+    has no gradient."""
     if use_fused is None:
-        use_fused = (model.lm_head.weight.device.type == "cuda" and not cfg.bias
-                     and cfg.dropout == 0.0 and cfg.n_embd % cfg.n_head == 0)
+        use_fused = uses_fused(model.cfg, model.lm_head.weight.device.type)
     if use_fused:
         from mapf_gpt_tpu_torch.ops.fused_gpt_train import fused_loss_fn
 

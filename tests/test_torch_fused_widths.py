@@ -2,10 +2,12 @@
 ids, without a CUDA toolkit:
 
 - ``fused_gpt.cuda_plan`` picks the JAX package's route and the kernel that
-  runs it on CUDA for (160, 5), (256, 8), (768, 12), (192, 6), (384, 6) and
-  (512, 8), computing the e2e kernel's chunk without building anything; a
-  width neither kernel can hold raises ``ValueError`` naming the
-  constraint, before ``nvcc`` would start;
+  runs it on CUDA for (160, 5), (256, 8), (768, 12), (192, 6), (384, 6),
+  (512, 8), (320, 10), (160, 10), (256, 16) and (384, 4), computing the e2e
+  kernel's chunk without building anything; a width neither kernel can
+  hold (n_embd not a multiple of 32, a head dim not a multiple of 16, too
+  many heads for the thin attention's shared memory) raises ``ValueError``
+  naming the constraint, before ``nvcc`` would start;
 - ``_build`` passes a caller's defines to ``nvcc`` and keys the library by
   them (a stand-in ``nvcc`` plays the compiler);
 - the e2e route run as three steps (the plain bf16 embedding,
@@ -45,6 +47,13 @@ from mapf_gpt_tpu_torch.ops.fused_blocks import blocks_reference, ln_f32
      {"FUSED_GPT_E": 192, "FUSED_GPT_H": 6, "FUSED_GPT_CH": 128}),
     (384, 6, 8, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 384, "FUSED_BLOCKS_DH": 64}),
     (512, 8, 12, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 512, "FUSED_BLOCKS_DH": 64}),
+    # n_embd not a multiple of 128, head dims 16 and 96: built since the layer-stack kernel
+    # masks its N tiles and takes any head dim that is a multiple of 16 up to 128
+    (320, 10, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 320, "FUSED_BLOCKS_DH": 32}),
+    (160, 10, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 160, "FUSED_BLOCKS_DH": 16}),
+    (256, 16, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 256, "FUSED_BLOCKS_DH": 16}),
+    (384, 4, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 384, "FUSED_BLOCKS_DH": 96}),
+    (160, 5, 90, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 160, "FUSED_BLOCKS_DH": 32}),
 ])
 def test_cuda_plan_without_building(monkeypatch, e, h, layers, route, kernel, defines):
     monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
@@ -66,9 +75,9 @@ def test_e2e_chunk_reproduces_the_published_builds():
 
 
 @pytest.mark.parametrize("e,h,match", [
-    (320, 10, "multiple of 128"),
-    (256, 16, "head dim must be 32 or 64"),
-    (384, 4, "head dim must be 32 or 64"),
+    (144, 9, "multiple of 32"),                    # head dim 16, n_embd % 32 != 0
+    (192, 24, "head dim must be a multiple of 16"),   # head dim 8
+    (4096, 256, "thin attention"),                 # 256 heads' scores over 227 KB
     (250, 5, "head dim"),
 ])
 def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, match):
@@ -83,10 +92,12 @@ def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, match):
 def test_blocks_width_checks():
     fused_blocks.check_width(256, 384, 6)
     fused_blocks.check_width(256, 1024, 32)
+    fused_blocks.check_width(256, 1536, 48)   # 48 KB of scores: dynamic shared memory
+    fused_blocks.check_width(256, 2048, 128)
     with pytest.raises(ValueError, match="T must be 256"):
         fused_blocks.check_width(128, 768, 12)
     with pytest.raises(ValueError, match="thin attention"):
-        fused_blocks.check_width(256, 1536, 48)
+        fused_blocks.check_width(256, 3584, 224)
 
 
 def test_build_passes_defines_and_keys_the_library(tmp_path, monkeypatch):

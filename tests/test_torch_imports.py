@@ -24,6 +24,10 @@ names = [m.name for m in pkgutil.walk_packages(mapf_gpt_tpu_torch.__path__,
                                                "mapf_gpt_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the modules of the kernels, the attention kernel's (the module route) among them
+assert {{"mapf_gpt_tpu_torch.ops.attention", "mapf_gpt_tpu_torch.ops.fused_gpt",
+         "mapf_gpt_tpu_torch.ops.fused_blocks", "mapf_gpt_tpu_torch.ops.fused_gpt_train",
+         "mapf_gpt_tpu_torch.models.gpt"}} <= set(names), names
 import chip_smoke
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu")

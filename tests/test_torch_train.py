@@ -266,10 +266,17 @@ def test_configurator_and_meter(tmp_path):
     ("bias", True), ("dropout", 0.1), ("attn_impl", "pallas"), ("attn_impl", "flash"),
 ])
 def test_unported_config_options_raise(field, value):
-    """Options the module does not run raise, rather than run another
-    implementation than the one asked for."""
+    """Options the module does not run (dropout > 0, an attn_impl other than
+    "auto", "einsum" and "pallas") raise, rather than run another
+    implementation than the one asked for; bias=True and "pallas", ported
+    since, build and run a forward."""
+    cfg = GPTConfig(n_layer=1, n_head=1, n_embd=32, **{field: value})
+    if (field, value) in (("bias", True), ("attn_impl", "pallas")):
+        with torch.no_grad():
+            assert GPT(cfg)(torch.zeros((2, 256), dtype=torch.long)).shape == (2, 67)
+        return
     with pytest.raises(NotImplementedError, match=field):
-        GPT(GPTConfig(n_layer=1, n_head=1, n_embd=32, **{field: value}))
+        GPT(cfg)
 
 
 def test_einsum_attention_is_the_plain_attention():

@@ -229,8 +229,10 @@ def test_wrappers_take_plain_versions_on_cpu_and_raise_elsewhere(small):
 
 @pytest.mark.parametrize("t,e,h,match", [
     (256, 160, 5, None), (256, 256, 8, None), (256, 768, 12, None), (64, 64, 2, None),
-    (256, 192, 4, "head dim must be 32 or 64"), (100, 256, 8, "multiple of 64"),
-    (256, 96, 1, "head dim"), (512, 256, 8, "up to 256"), (256, 250, 4, "not a multiple of n_head"),
+    (256, 192, 4, None), (100, 256, 8, "multiple of 64"),   # head dim 48
+    (256, 96, 1, None), (512, 256, 8, "up to 256"), (256, 250, 4, "not a multiple of n_head"),
+    (256, 256, 16, None), (256, 384, 4, None), (256, 256, 32, "head dim must be a multiple of 16"),
+    (256, 144, 9, "multiple of 32"), (256, 256, 1, "up to 128"),
 ])
 def test_train_width_checks_before_any_build(t, e, h, match):
     if match is None:
