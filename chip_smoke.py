@@ -59,10 +59,10 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    channel's tolerance; backward in 2-layer chunks: dx and the six
    gradients each within 0.08 * max|ref| + 1e-4, the tolerances of
    ``tests/test_fused_gpt.py`` and ``tests/test_fused_gpt_train.py``), and
-   the 85M's width (E=768, 12 heads), head dim 16 (E=256, 16 heads) and
-   head dim 96 (E=384, 4 heads) on a 2-layer forward and a 1-layer
-   backward chunk each; a second backward launch must equal the first bit
-   for bit.
+   the 85M's width (E=768, 12 heads), head dim 16 (E=256, 16 heads), head
+   dim 96 (E=384, 4 heads) and T=200 (the 6M's width; T needs no longer
+   be a multiple of 64) on a 2-layer forward and a 1-layer backward chunk
+   each; a second backward launch must equal the first bit for bit.
 10. The trainer through its entry point: ``train.loop.train`` with
    ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
    eval every 10, on shards written here with ``write_arrow_shard``: the
@@ -81,8 +81,11 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    against its plain version ``attention_einsum``, fp32 and bf16, at
    [B, H, T, D] = [64, 5, 256, 32] (2M-like), [32, 8, 256, 32] (6M-like),
    [16, 12, 256, 64] (85M-like), [1, 3, 256, 32] (3 pairs), [4, 10, 256,
-   16] (D=16), [4, 4, 256, 128] (D=128), [4, 5, 200, 32] (a masked T), and
-   the 6M-like shape as the module's strided views of a q|k|v product:
+   16] (D=16), [4, 4, 256, 128] (D=128), [4, 5, 200, 32] (a masked T),
+   [4, 5, 300, 32] and [2, 4, 1024, 32] (T past 256; K and V in two
+   windows at 1024), [1, 4, 1024, 128] (four windows), head dims 8, 24 and
+   72 (zero columns in bf16), and the 6M-like shape and a D=24 shape as the
+   module's strided views of a q|k|v product:
    fp32 within rtol = atol = 1e-4 (``tests/test_attention.py``), bf16
    within 0.01 * max|ref| + 1e-3.
 13. The module route at full width: the trained 6M with
@@ -141,6 +144,7 @@ from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
 from mapf_gpt_tpu_torch.train import loop as train_loop  # noqa: E402
 from mapf_gpt_tpu_torch.train.data import write_arrow_shard  # noqa: E402
 from mapf_gpt_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from mapf_gpt_tpu_torch.utils import profiling  # noqa: E402
 
 CKPT = os.path.join(ROOT, "checkpoints", "MAPF-GPT-2M-r4.pt")
 CKPT_6M = os.path.join(ROOT, "checkpoints", "MAPF-GPT-6M-r5.pt")
@@ -157,13 +161,17 @@ N_WIDTHS_TIME = 2048             # contexts of each width's timing
 # fgt.GROUP = 256, so the 2M's two full groups and the 6M's 256 + 44 check the
 # group offsets, the gradients summed across groups and a partial group
 N_TRAIN_CMP = {"2M": 512, "6M": 300, "85M": 64}
-TRAIN_WIDTHS = {"85M width": (768, 12), "head dim 16": (256, 16), "head dim 96": (384, 4)}
+TRAIN_WIDTHS = {"85M width": (768, 12, 256), "head dim 16": (256, 16, 256),   # (E, heads, T)
+                "head dim 96": (384, 4, 256), "T 200": (256, 8, 200)}
 N_TRAIN_TIME = 2048              # the 6M's reference micro-batch
 TRAIN_PLAIN_CHUNK = 256          # contexts per plain training-version call
 TRAIN_ITERS, TRAIN_BATCH, TRAIN_ACCUM = 20, 256, 2
 LOSS_DROP = 0.5                  # the trainer's last logged loss must be this far below its first
 ATT_SHAPES = ((64, 5, 256, 32), (32, 8, 256, 32), (16, 12, 256, 64), (1, 3, 256, 32),
-              (4, 10, 256, 16), (4, 4, 256, 128), (4, 5, 200, 32))   # [B, H, T, D] compared
+              (4, 10, 256, 16), (4, 4, 256, 128), (4, 5, 200, 32),   # [B, H, T, D] compared
+              (4, 5, 300, 32), (2, 4, 1024, 32), (1, 4, 1024, 128), (8, 5, 256, 8),
+              (8, 5, 256, 24), (4, 4, 256, 72))
+ATT_STRIDED = ((32, 8, 256, 32), (8, 5, 256, 24))   # also as views of a q|k|v product
 ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}   # [B, H, T, D] timed
 ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
@@ -540,15 +548,15 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
                                        xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
             bwd_err = max(bwd_err, err)
 
-    # other widths (the 85M's, head dims 16 and 96): a 2-layer forward chunk, a
-    # 1-layer backward chunk
+    # other widths (the 85M's, head dims 16 and 96, T=200): a 2-layer forward
+    # chunk, a 1-layer backward chunk
     _, _, real = reset_batch(seed, B_85M, STEPS_85M, dev)
-    for label, (e, h) in TRAIN_WIDTHS.items():
-        cfg = GPTConfig(n_layer=2, n_head=h, n_embd=e)
-        gen = torch.Generator().manual_seed(seed if label == "85M width" else seed + e + h)
+    for label, (e, h, t) in TRAIN_WIDTHS.items():
+        cfg = GPTConfig(n_layer=2, n_head=h, n_embd=e, block_size=t)
+        gen = torch.Generator().manual_seed(seed if label == "85M width" else seed + e + h + t)
         model = load_model(cfg, init_params(cfg, gen), device=dev)
         stacks = train_stacks(model)
-        x = embed(model, real[:N_TRAIN_CMP["85M"]])
+        x = embed(model, real[:N_TRAIN_CMP["85M"], :t])
         out, xsave = fgt.train_forward(x, stacks, last_only=False)
         torch.cuda.synchronize()
         ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
@@ -697,6 +705,16 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
 
     fwd_ms = cuda_ms(lambda: fgt.train_forward(x, stacks, last_only=True), reps=3)
     bwd_ms = cuda_ms(backward, reps=3)
+    lib = fgt._library()
+    log("[timing] backward workspace for groups of 256 contexts: " + ", ".join(
+        f"{label} {lib.fused_train_workspace(1, fgt.GROUP, 256, e_, h_)} bytes"
+        for label, (e_, h_) in (("6M", (256, 8)), ("85M", (768, 12)))))
+    split = profiling.kernel_times(backward, reps=1)   # warmed up by the timing above
+    traced = sum(r[0] for r in split)
+    log(f"[timing] 6M train N={N_TRAIN_TIME} backward by kernel ({traced:.3f} ms traced):")
+    for ms_k, calls, name in split[:12]:
+        log(f"[timing]   {ms_k:10.3f} ms {100 * ms_k / traced:5.1f} % {calls:6.1f} launches  "
+            f"{name[:100]}")
     whole_ms = cuda_ms(whole, reps=3)
     plain_fwd_ms = cuda_ms(plain_forward, reps=1)
     plain_bwd_ms = cuda_ms(plain_backward, reps=1)
@@ -726,7 +744,9 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
          "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:133",
          "launches": trainer["launches"][1], "max_abs_err": bwd_err, "ms": bwd_ms,
          "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "calls": len(chunks)},
+         "calls": len(chunks),
+         "attention_kernels_ms": {name.split("<")[0].split("(")[0]: ms_k
+                                  for ms_k, _, name in split if "attn" in name}},
     ]
 
 
@@ -764,13 +784,16 @@ def attention_phase(seed: int, dev) -> float:
             torch.cuda.synchronize()
             err = max(err, check_attention(f"attention {list(shape)} {dtype}", got,
                                            tatt.attention_einsum(*x, scale)))
-    b, h, t, d = ATT_SHAPES[1]
-    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
-    x = [z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.split(h * d, dim=-1)]
-    got = tatt.attention_pallas(*x, 1.0 / math.sqrt(d))
-    torch.cuda.synchronize()
-    return max(err, check_attention(f"attention {[b, h, t, d]} bf16, strided views of q|k|v",
-                                    got, tatt.attention_einsum(*x, 1.0 / math.sqrt(d))))
+    for b, h, t, d in ATT_STRIDED:
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.to(dtype).split(h * d, dim=-1)]
+            got = tatt.attention_pallas(*x, 1.0 / math.sqrt(d))
+            torch.cuda.synchronize()
+            err = max(err, check_attention(
+                f"attention {[b, h, t, d]} {dtype}, strided views of q|k|v", got,
+                tatt.attention_einsum(*x, 1.0 / math.sqrt(d))))
+    return err
 
 
 def module_route_phase(seed: int, dev) -> None:

@@ -59,16 +59,18 @@
 //   * ln_kernel (LN forward), ln_bwd_kernel (a warp per row: dx += LN
 //     backward, dxb = bf16(dx)) and dg_partial_kernel (the gain gradient,
 //     column sums over fixed row blocks, reduced like the weights');
-//   * attn_fwd_kernel: one (context, head, 64 query rows) a CTA, 16 rows a
-//     warp; the warp's 16 x T scores in shared memory, softmax with the max
-//     subtracted, P in bf16, P @ V on the tensor cores;
-//   * attn_bwd_dq_kernel: the same CTAs recompute P (fp32), dP = dA V^T and
-//     ds, write dq and keep ds and bf16(P) in the workspace for
-//     attn_bwd_dkv_kernel, which sums dk = ds^T Q and dv = P^T dA over all
-//     query rows for 16 keys a warp.
-// Head dim a multiple of 16 up to 128 (a template), T a multiple of 64 up
-// to 256, E a multiple of 32.  This first version leaves wgmma, TMA and fusing the group's
-// intermediates to later work.
+//   * the attention (redesigned for Hopper): the forward and the backward's
+//     recompute run attn::launch_fwd (csrc/attn_tile.cuh, shared with
+//     csrc/attention.cu), one CTA a (context, head) at a time, K and V
+//     staged once by cp.async, a row's scores in mma.sync accumulators;
+//     the recompute also writes each row's max and sum.  The backward's
+//     attn_bwd_q_kernel (delta and dq) and attn_bwd_kv_kernel (dk and dv)
+//     recompute p from those, so no T x T buffer exists and nothing is
+//     summed by atomics.
+// Head dim a multiple of 16 up to 128 (a template), any T from 1 to 256 (the
+// weight gradients' depth padded to whole BK tiles with zero rows), E a
+// multiple of 32.  The GEMMs and LayerNorm kernels leave wgmma, TMA and
+// fusing the group's intermediates to later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libfused_train.so fused_train.cu   (ops/_build.py)
@@ -81,8 +83,12 @@
 #include <cmath>
 #include <type_traits>
 
+#include "attn_tile.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+using attn::cp_async16;
+using attn::cp_async_commit;
 
 namespace {
 
@@ -102,11 +108,6 @@ constexpr int A_TILE = BM * LDA_N > BK * LDA_T ? BM * LDA_N : BK * LDA_T;
 constexpr int B_TILE = BK * LDB_N > BN * LDB_T ? BK * LDB_N : BN * LDB_T;
 constexpr int MAX_SPLITS = 32;
 
-// attention
-constexpr int ATT_WARPS = 4;
-constexpr int ATT_ROWS = ATT_WARPS * 16;   // query (or key) rows a CTA
-constexpr int LDS = T_MAX + 4;             // fp32 score rows
-constexpr int LDP = T_MAX + 8;             // bf16 probability rows
 constexpr int ROWS_PER_PART = 256;         // rows of one gain-gradient partial
 
 enum Epilogue { EPI_BF16 = 0, EPI_GELU, EPI_RESID, EPI_F32, EPI_F32_GELU, EPI_GELU_GRAD };
@@ -174,18 +175,6 @@ __device__ __forceinline__ void frag_to_lane8(const FragC& c, float* stage, floa
 
 __device__ __forceinline__ int lane_row() { return (threadIdx.x & 31) >> 1; }
 __device__ __forceinline__ int lane_col() { return (threadIdx.x & 1) * 8; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // C[M, N] = epilogue(op(A) @ op(B)) over the K range of split blockIdx.z.
 //   op(A) [M, K]: A row-major with rows lda apart, or (AT) A stored [K, M].
@@ -270,9 +259,9 @@ gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int
     const int cur = (kt - kt0) & 1;
     if (kt + 1 < kt1) {
       load_tiles(cur ^ 1, (kt + 1) * BK);
-      cp_async_wait_1();
+      attn::cp_async_wait<1>();
     } else {
-      cp_async_wait_0();
+      attn::cp_async_wait<0>();
     }
     __syncthreads();
 #pragma unroll
@@ -443,195 +432,214 @@ to_f32_kernel(const bf16* __restrict__ src, float* __restrict__ dst, long long c
   if (i < count) dst[i] = __bfloat162float(src[i]);
 }
 
-// The warp's 16 query rows r0.. of head h: S = (Q K^T) * scale into s
-// [16][LDS] fp32, then p = softmax(S) (max subtracted, exp, divided by the
-// sum) in place, fp32.  Lanes 2i and 2i+1 hold row i, each half the keys.
+// The attention backward, in two deterministic kernels that keep every
+// score in registers: the forward's recompute (attn::launch_fwd) leaves
+// each row's statistics m, l [ctx][H][T] (p_ij = 2^(s_ij scale' - m_i) /
+// l_i, scale' = scale * log2 e); then
+//   attn_bwd_q_kernel, one CTA a (64 query rows, head, context), K and V of
+//     the head staged whole by cp.async: pass A sums delta_i = sum_j dp_ij
+//     p_ij (fp32, dp = dA V^T), the sum the JAX kernel takes; pass B forms
+//     ds = bf16(((dp - delta) p) scale) and adds dq += ds K;
+//   attn_bwd_kv_kernel, one CTA a (64 keys, head, context), Q and dA of the
+//     head staged whole: S^T = K Q^T and dP^T = V dA^T again, p and ds from
+//     m, l and delta, then dv += bf16(p)^T dA and dk += ds^T Q.
+// Every product runs on mma.sync from ldmatrix'ed shared-memory tiles; the
+// outputs leave 16 bytes a lane; no atomics, no T x T buffer.
+constexpr int BC = 32;   // keys (query side) or queries (key side) a chunk
+
 template <int DH>
-__device__ __forceinline__ void scores_softmax(const bf16* qkv, int E3, int E, int r0, int h,
-                                               int T, float scale, float* s) {
-  const int lane = threadIdx.x & 31;
-  FragA qa[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qkv + (size_t)r0 * E3 + h * DH + kk * 16, E3);
-  for (int j = 0; j < T / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      FragBT kb;  // K^T tile: element (d, key) at K[key][d]
-      wmma::load_matrix_sync(kb, qkv + (size_t)(j * 16) * E3 + E + h * DH + kk * 16, E3);
-      wmma::mma_sync(c, qa[kk], kb, c);
-    }
-    wmma::store_matrix_sync(s + j * 16, c, LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-  float* row = s + lane_row() * LDS;
-  const int half = T / 2, c0 = (lane & 1) * half;
-  float m = __int_as_float(0xff800000);  // -inf
-  for (int c = c0; c < c0 + half; ++c) {
-    row[c] *= scale;
-    m = fmaxf(m, row[c]);
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  float sum = 0.f;
-  for (int c = c0; c < c0 + half; ++c) {
-    const float e = expf(row[c] - m);
-    row[c] = e;
-    sum += e;
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  for (int c = c0; c < c0 + half; ++c) row[c] = row[c] / sum;
-  __syncwarp();
+size_t bwd_q_smem(int T) {
+  return ((size_t)2 * attn::round_up(T, BC) + attn::TILE) * (DH + 8) * sizeof(bf16);
 }
 
-// out[16, DH] (rows ld apart, bf16) = bf16(P @ V-rows), P the warp's bf16
-// [16][LDP] tile, the B operand rows of `vb` ldv apart.
 template <int DH>
-__device__ __forceinline__ void pv_product(const bf16* p, const bf16* vb, int ldv, int T,
-                                           bf16* out, int ld, float* stage) {
-  FragC o[DH / 16];
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int kk = 0; kk < T / 16; ++kk) {
-    FragA pa;
-    wmma::load_matrix_sync(pa, p + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      FragB b;
-      wmma::load_matrix_sync(b, vb + (size_t)(kk * 16) * ldv + n * 16, ldv);
-      wmma::mma_sync(o[n], pa, b, o[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n) {
-    float v[8];
-    frag_to_lane8(o[n], stage, v);
-    store8(out + (size_t)lane_row() * ld + n * 16 + lane_col(), v);
-  }
+size_t bwd_kv_smem(int T) {
+  const size_t tp = attn::round_up(T, BC);
+  return (2 * tp + 2 * attn::TILE) * (DH + 8) * sizeof(bf16) + 3 * tp * sizeof(float);
 }
 
-// att[c, rows, h*DH ..] = bf16(bf16(softmax(q k^T * scale)) @ v) for one
-// (64 query rows, head, context) a CTA; qkv [n, T, 3E], att [n, T, E].
 template <int DH>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ att, int T, int E,
-                float scale) {
+__global__ void __launch_bounds__(attn::WARPS * 32)
+attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                  const float* __restrict__ m_in, const float* __restrict__ l_in,
+                  float* __restrict__ delta_out, bf16* __restrict__ dqkv, int T, int E,
+                  float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y, ctx = blockIdx.z, r0 = blockIdx.x * ATT_ROWS + warp * 16;
-  const int E3 = 3 * E;
-  const bf16* q = qkv + (size_t)ctx * T * E3;
-  float* s = reinterpret_cast<float*>(smem) + warp * 16 * LDS;
-  bf16* p = reinterpret_cast<bf16*>(smem + ATT_WARPS * 16 * LDS * 4) + warp * 16 * LDP;
-  scores_softmax<DH>(q, E3, E, r0, h, T, scale, s);
-  const int lane = threadIdx.x & 31, half = T / 2, c0 = (lane & 1) * half;
-  for (int c = c0; c < c0 + half; ++c)
-    p[lane_row() * LDP + c] = __float2bfloat16(s[lane_row() * LDS + c]);
-  __syncwarp();
-  pv_product<DH>(p, q + 2 * E + h * DH, E3, T,
-                 att + ((size_t)ctx * T + r0) * E + h * DH, E, s);
+  constexpr int LD = DH + 8, NB = BC / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * E;
+  const int r0 = blockIdx.x * attn::TILE + warp * 16;
+  const int tp = attn::round_up(T, BC);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)tp * LD;
+  bf16* stage = vs + (size_t)tp * LD + warp * 16 * LD;
+  const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DH;
+  const bf16* dap = datt + (size_t)ctx * T * E + h * DH;
+  const size_t srow = ((size_t)ctx * H + h) * T;
+  attn::stage_rows_async<DH>(ks, qp + E, E3, 0, tp, T, threadIdx.x, blockDim.x);
+  attn::stage_rows_async<DH>(vs, qp + 2 * E, E3, 0, tp, T, threadIdx.x, blockDim.x);
+  attn::cp_async_commit();
+  const bool active = r0 < T;
+  unsigned qa[DH / 16][4], daa[DH / 16][4];
+  float mr[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  if (active) {
+    attn::stage_rows_warp<DH>(stage, qp, E3, r0, 16, T);
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) attn::frag_a(qa[kk], stage + kk * 16, LD);
+    __syncwarp();
+    attn::stage_rows_warp<DH>(stage, dap, E, r0, 16, T);
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) attn::frag_a(daa[kk], stage + kk * 16, LD);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + g + 8 * r < T) {
+        mr[r] = m_in[srow + r0 + g + 8 * r];
+        inv[r] = 1.f / l_in[srow + r0 + g + 8 * r];
+      }
+  }
+  attn::cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+  const float c2 = scale * attn::LOG2E;
+
+  // pass A: delta_i = sum_j dp_ij p_ij
+  float dl[2] = {0.f, 0.f};
+  for (int c0 = 0; c0 < tp; c0 += BC) {
+    float s[NB][4], dp[NB][4];
+    attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
+    attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key_ok = c0 + j * 8 + 2 * c4 + (e & 1) < T;
+        const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+        dl[e >> 1] += dp[j][e] * p;
+      }
+  }
+  dl[0] = attn::quad_sum(dl[0]);
+  dl[1] = attn::quad_sum(dl[1]);
+
+  // pass B: ds = bf16(((dp - delta) p) scale); dq += ds K
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int c0 = 0; c0 < tp; c0 += BC) {
+    float s[NB][4], dp[NB][4];
+    attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
+    attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key_ok = c0 + j * 8 + 2 * c4 + (e & 1) < T;
+        const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+        s[j][e] = ((dp[j][e] - dl[e >> 1]) * p) * scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+      unsigned a[4];
+      attn::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      attn::accumulate<DH>(acc, a, ks + (c0 + kk * 16) * LD, LD);
+    }
+  }
+  attn::store_rows<DH>(acc, stage, dqkv + (size_t)ctx * T * E3 + h * DH, E3, r0, T);
+  if (c4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + g + 8 * r < T) delta_out[srow + r0 + g + 8 * r] = dl[r];
+  }
 }
 
-// Attention backward, query side, one (64 query rows, head, context) a CTA:
-// recompute p (fp32), dp = datt v^T, ds = bf16(((dp - sum(dp * p)) * p) *
-// scale); dq = bf16(ds k) into dqkv's q columns; ds and bf16(p) to
-// ds_g, pb_g [n, H, T, T] for attn_bwd_dkv_kernel.
 template <int DH>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                   bf16* __restrict__ dqkv, bf16* __restrict__ ds_g, bf16* __restrict__ pb_g,
-                   int T, int E, float scale) {
+__global__ void __launch_bounds__(attn::WARPS * 32)
+attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                   const float* __restrict__ m_in, const float* __restrict__ l_in,
+                   const float* __restrict__ delta_in, bf16* __restrict__ dqkv, int T, int E,
+                   float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.y, ctx = blockIdx.z, r0 = blockIdx.x * ATT_ROWS + warp * 16;
-  const int H = gridDim.y, E3 = 3 * E;
-  const bf16* q = qkv + (size_t)ctx * T * E3;
-  const bf16* da = datt + (size_t)ctx * T * E;
-  float* s = reinterpret_cast<float*>(smem) + warp * 16 * LDS;
-  float* dp = reinterpret_cast<float*>(smem) + (ATT_WARPS + warp) * 16 * LDS;
-  bf16* dsb = reinterpret_cast<bf16*>(smem + 2 * ATT_WARPS * 16 * LDS * 4) + warp * 16 * LDP;
-  const size_t head_at = ((size_t)ctx * H + h) * T * T;
-
-  scores_softmax<DH>(q, E3, E, r0, h, T, scale, s);
-  FragA daf[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(daf[kk], da + (size_t)r0 * E + h * DH + kk * 16, E);
-  for (int j = 0; j < T / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      FragBT vb;  // V^T tile: element (d, key) at V[key][d]
-      wmma::load_matrix_sync(vb, q + (size_t)(j * 16) * E3 + 2 * E + h * DH + kk * 16, E3);
-      wmma::mma_sync(c, daf[kk], vb, c);
-    }
-    wmma::store_matrix_sync(dp + j * 16, c, LDS, wmma::mem_row_major);
+  constexpr int LD = DH + 8, NB = BC / 8;
+  constexpr bool REG = DH <= 64;   // K and V fragments in registers (else read as needed)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
+  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * E;
+  const int k0 = blockIdx.x * attn::TILE + warp * 16;
+  const int tp = attn::round_up(T, BC);
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* das = qs + (size_t)tp * LD;
+  bf16* kst = das + (size_t)tp * LD + warp * 32 * LD;
+  bf16* vst = kst + 16 * LD;
+  float* ms = reinterpret_cast<float*>(das + (size_t)tp * LD + attn::WARPS * 32 * LD);
+  float* li = ms + tp;
+  float* dls = li + tp;
+  const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DH;
+  const bf16* dap = datt + (size_t)ctx * T * E + h * DH;
+  const size_t srow = ((size_t)ctx * H + h) * T;
+  attn::stage_rows_async<DH>(qs, qp, E3, 0, tp, T, threadIdx.x, blockDim.x);
+  attn::stage_rows_async<DH>(das, dap, E, 0, tp, T, threadIdx.x, blockDim.x);
+  attn::cp_async_commit();
+  // queries past T: m = +inf, so that p = 2^(-inf) = 0
+  for (int i = threadIdx.x; i < tp; i += blockDim.x) {
+    const bool ok = i < T;
+    ms[i] = ok ? m_in[srow + i] : __int_as_float(0x7f800000);
+    li[i] = ok ? 1.f / l_in[srow + i] : 0.f;
+    dls[i] = ok ? delta_in[srow + i] : 0.f;
   }
-  __syncwarp();
-  const int half = T / 2, c0 = (lane & 1) * half, rr = lane_row();
-  const float* prow = s + rr * LDS;
-  const float* dprow = dp + rr * LDS;
-  float rsum = 0.f;
-  for (int c = c0; c < c0 + half; ++c) rsum += dprow[c] * prow[c];
-  rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-  bf16* ds_row = ds_g + head_at + (size_t)(r0 + rr) * T;
-  bf16* pb_row = pb_g + head_at + (size_t)(r0 + rr) * T;
-  for (int c = c0; c < c0 + half; ++c) {
-    const bf16 d = __float2bfloat16(((dprow[c] - rsum) * prow[c]) * scale);
-    dsb[rr * LDP + c] = d;
-    ds_row[c] = d;
-    pb_row[c] = __float2bfloat16(prow[c]);
-  }
-  __syncwarp();
-  pv_product<DH>(dsb, q + E + h * DH, E3, T,
-                 dqkv + ((size_t)ctx * T + r0) * E3 + h * DH, E3, s);
-}
-
-// Attention backward, key side, one (64 keys, head, context) a CTA, 16 keys
-// a warp: dk = bf16(ds^T q), dv = bf16(bf16(p)^T datt), summed over all
-// query rows, into dqkv's k and v columns.
-template <int DH>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                    const bf16* __restrict__ ds_g, const bf16* __restrict__ pb_g,
-                    bf16* __restrict__ dqkv, int T, int E) {
-  __shared__ __align__(128) float stage_s[ATT_WARPS][16 * 16];
-  const int warp = threadIdx.x >> 5;
-  const int h = blockIdx.y, ctx = blockIdx.z, k0 = blockIdx.x * ATT_ROWS + warp * 16;
-  const int H = gridDim.y, E3 = 3 * E;
-  const bf16* q = qkv + (size_t)ctx * T * E3;
-  const bf16* da = datt + (size_t)ctx * T * E;
-  const size_t head_at = ((size_t)ctx * H + h) * T * T;
-  FragC dk[DH / 16], dv[DH / 16];
+  const bool active = k0 < T;
+  unsigned ka[REG ? DH / 16 : 1][4], va[REG ? DH / 16 : 1][4];
+  if (active) {
+    attn::stage_rows_warp<DH>(kst, qp + E, E3, k0, 16, T);
+    attn::stage_rows_warp<DH>(vst, qp + 2 * E, E3, k0, 16, T);
+    __syncwarp();
+    if constexpr (REG) {
 #pragma unroll
-  for (int n = 0; n < DH / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-  for (int q0 = 0; q0 < T; q0 += 16) {
-    FragAT dsa, pa;  // ds^T, p^T tiles: element (key, query) at [query][key]
-    wmma::load_matrix_sync(dsa, ds_g + head_at + (size_t)q0 * T + k0, T);
-    wmma::load_matrix_sync(pa, pb_g + head_at + (size_t)q0 * T + k0, T);
-#pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      FragB qb, dab;
-      wmma::load_matrix_sync(qb, q + (size_t)q0 * E3 + h * DH + n * 16, E3);
-      wmma::load_matrix_sync(dab, da + (size_t)q0 * E + h * DH + n * 16, E);
-      wmma::mma_sync(dk[n], dsa, qb, dk[n]);
-      wmma::mma_sync(dv[n], pa, dab, dv[n]);
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        attn::frag_a(ka[kk], kst + kk * 16, LD);
+        attn::frag_a(va[kk], vst + kk * 16, LD);
+      }
     }
   }
-  bf16* out = dqkv + ((size_t)ctx * T + k0 + lane_row()) * E3 + h * DH + lane_col();
+  attn::cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+  const float c2 = scale * attn::LOG2E;
+
+  float dk[DH / 8][4], dv[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 16; ++n) {
-    float v[8];
-    frag_to_lane8(dk[n], stage_s[warp], v);
-    store8(out + E + n * 16, v);
-    frag_to_lane8(dv[n], stage_s[warp], v);
-    store8(out + 2 * E + n * 16, v);
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int c0 = 0; c0 < tp; c0 += BC) {
+    float st[NB][4], dpt[NB][4];   // S^T and dP^T: rows are keys, columns queries
+    if constexpr (REG) {
+      attn::scores<DH, BC / 16>(st, ka, qs + c0 * LD, LD);
+      attn::scores<DH, BC / 16>(dpt, va, das + c0 * LD, LD);
+    } else {
+      attn::scores_smem_a<DH, BC / 16>(st, kst, LD, qs + c0 * LD, LD);
+      attn::scores_smem_a<DH, BC / 16>(dpt, vst, LD, das + c0 * LD, LD);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = c0 + j * 8 + 2 * c4 + (e & 1);
+        const float p = attn::ex2(st[j][e] * c2 - ms[i]) * li[i];
+        st[j][e] = p;
+        dpt[j][e] = ((dpt[j][e] - dls[i]) * p) * scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+      unsigned a[4];
+      attn::c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+      attn::accumulate<DH>(dv, a, das + (c0 + kk * 16) * LD, LD);
+      attn::c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
+      attn::accumulate<DH>(dk, a, qs + (c0 + kk * 16) * LD, LD);
+    }
   }
+  bf16* out = dqkv + (size_t)ctx * T * E3 + h * DH;
+  attn::store_rows<DH>(dk, kst, out + E, E3, k0, T);
+  attn::store_rows<DH>(dv, vst, out + 2 * E, E3, k0, T);
 }
 
 #define RETURN_IF_ERROR(call)                  \
@@ -691,34 +699,38 @@ cudaError_t layer_norm(const bf16* x, int ldx, const float* g, bf16* y, int ldy,
 // 1/sqrt(dh) in double, rounded once to fp32, as the JAX kernels' python scale
 float attn_scale(int dh) { return (float)(1.0 / std::sqrt((double)dh)); }
 
-size_t fwd_smem() { return (size_t)ATT_WARPS * 16 * (LDS * 4 + LDP * 2); }
-size_t dq_smem() { return (size_t)ATT_WARPS * 16 * (2 * LDS * 4 + LDP * 2); }
-
+// att = the attention of qkv [nc, T, 3E] -> [nc, T, E] (attn::launch_fwd
+// over the nc x H (context, head) pairs), and each row's statistics m, l
+// [nc, H, T] when not null.
 template <int DH>
-cudaError_t attention_fwd(const bf16* qkv, bf16* att, int nc, int T, int E, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)fwd_smem());
-  if (err != cudaSuccess) return err;
-  const dim3 grid(T / ATT_ROWS, E / DH, nc);
-  attn_fwd_kernel<DH><<<grid, ATT_WARPS * 32, fwd_smem(), stream>>>(qkv, att, T, E,
-                                                                    attn_scale(DH));
-  return cudaGetLastError();
+cudaError_t attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T, int E,
+                          cudaStream_t stream) {
+  const int H = E / DH;
+  const long long E3 = 3LL * E;
+  const attn::Strides sqkv{T * E3, DH, E3}, so{(long long)T * E, DH, E};
+  return attn::launch_fwd<DH>(qkv, qkv + E, qkv + 2 * E, att, sqkv, sqkv, sqkv, so, nc * H, H, T,
+                              attn_scale(DH), m, l, stream);
 }
 
+// dqkv [nc, T, 3E] from qkv, datt [nc, T, E] and the forward's m, l; delta
+// [nc, H, T] is the query side's scratch for the key side.
 template <int DH>
-cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, bf16* dqkv, bf16* ds, bf16* pb,
-                          int nc, int T, int E, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dq_smem());
+cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, const float* l,
+                          float* delta, bf16* dqkv, int nc, int T, int E, cudaStream_t stream) {
+  const dim3 grid((T + attn::TILE - 1) / attn::TILE, E / DH, nc);
+  const size_t sq = bwd_q_smem<DH>(T), skv = bwd_kv_smem<DH>(T);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq);
   if (err != cudaSuccess) return err;
-  const dim3 grid(T / ATT_ROWS, E / DH, nc);
-  attn_bwd_dq_kernel<DH><<<grid, ATT_WARPS * 32, dq_smem(), stream>>>(qkv, datt, dqkv, ds, pb,
-                                                                      T, E, attn_scale(DH));
+  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)skv);
+  if (err != cudaSuccess) return err;
+  attn_bwd_q_kernel<DH><<<grid, attn::WARPS * 32, sq, stream>>>(qkv, datt, m, l, delta, dqkv, T,
+                                                                E, attn_scale(DH));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<DH><<<grid, ATT_WARPS * 32, 0, stream>>>(qkv, datt, ds, pb, dqkv, T, E);
+  attn_bwd_kv_kernel<DH><<<grid, attn::WARPS * 32, skv, stream>>>(qkv, datt, m, l, delta, dqkv,
+                                                                  T, E, attn_scale(DH));
   return cudaGetLastError();
 }
 
@@ -746,12 +758,18 @@ FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E) {
 }
 
 struct BwdBufs {
-  float *dx, *hmid, *dxn, *mu, *rs, *partial;
-  bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv, *ds, *pb;
+  float *dx, *hmid, *dxn, *mu, *rs, *partial, *m, *l, *delta;
+  bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv;
 };
 
+// Rows of a group's buffers: g T rounded up to the GEMM's depth BK, so that
+// the weight gradients (dW = A^T dY, the rows as the product's depth) run
+// over whole BK tiles of rows; the rows past g T of their operands (hact,
+// dxb, xn, dh, att, dqkv) are zeroed at the start of each group.
+size_t padded_rows(int g, int T) { return (size_t)attn::round_up(g * T, BK); }
+
 BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H) {
-  const size_t rows = (size_t)g * T;
+  const size_t rows = padded_rows(g, T);
   BwdBufs b;
   b.dx = reinterpret_cast<float*>(base + w.take(rows * E * 4));
   b.hmid = reinterpret_cast<float*>(base + w.take(rows * 4 * E * 4));
@@ -769,6 +787,10 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H
   const size_t gparts = ((rows + ROWS_PER_PART - 1) / ROWS_PER_PART) * E;
   part = gparts > part ? gparts : part;
   b.partial = reinterpret_cast<float*>(base + w.take(part * 4));
+  // the attention's row statistics and delta, [g, H, T] each
+  b.m = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
+  b.l = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
+  b.delta = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
   b.dxb = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.hact = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
@@ -777,13 +799,25 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H
   b.att = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.datt = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.dqkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * E * 2));
-  b.ds = reinterpret_cast<bf16*>(base + w.take((size_t)g * H * T * T * 2));
-  b.pb = reinterpret_cast<bf16*>(base + w.take((size_t)g * H * T * T * 2));
   return b;
 }
 
+// Zero rows M .. padded of the weight gradients' operands.
+cudaError_t zero_pad_rows(const BwdBufs& b, size_t M, size_t padded, int E,
+                          cudaStream_t stream) {
+  if (padded == M) return cudaSuccess;
+  const size_t n = padded - M;
+  const struct { bf16* p; int cols; } bufs[] = {{b.hact, 4 * E}, {b.dxb, E}, {b.xn, E},
+                                                {b.dh, 4 * E},   {b.att, E}, {b.dqkv, 3 * E}};
+  for (const auto& x : bufs) {
+    cudaError_t err = cudaMemsetAsync(x.p + M * x.cols, 0, n * x.cols * sizeof(bf16), stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 bool shape_ok(int T, int E, int H) {
-  if (H <= 0 || E % H || E % 32 || T % ATT_ROWS || T > T_MAX || T <= 0) return false;
+  if (H <= 0 || E % H || E % 32 || T < 1 || T > T_MAX) return false;
   const int dh = E / H;
   return dh % 16 == 0 && dh <= 128;
 }
@@ -826,7 +860,7 @@ int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const 
       RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
       RETURN_IF_ERROR((gemm<false, false, EPI_BF16>(b.xn, E, Wqkv, E3, M, E3, E, b.qkv, nullptr,
                                                     E3, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nc, T, E, stream));
+      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nullptr, nullptr, nc, T, E, stream));
       RETURN_IF_ERROR((gemm<false, false, EPI_RESID>(b.att, E, Wproj, E, M, E, E, xmid, nullptr,
                                                      E, xin, E, nullptr, 1, stream)));
       const bool last = l == layers - 1;
@@ -871,6 +905,8 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
+    const int Mp = (int)padded_rows(nc, T);   // the weight gradients' depth
+    RETURN_IF_ERROR(zero_pad_rows(b, M, Mp, E, stream));
     const long long elems = (long long)M * E;
     const bf16* dxin_g = dxin + (size_t)c0 * T * E;
     to_f32_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(dxin_g, b.dx, elems);
@@ -888,11 +924,11 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, stream));
       RETURN_IF_ERROR((gemm<false, false, EPI_F32_GELU>(b.xn, E, Wfc, F, M, F, E, b.hact, b.hmid,
                                                         F, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, M, b.partial, dwfc2 + (size_t)l * F * E,
+      RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, Mp, b.partial, dwfc2 + (size_t)l * F * E,
                                   stream));
       RETURN_IF_ERROR((gemm<false, true, EPI_GELU_GRAD>(b.dxb, E, Wfc2, E, M, F, E, b.dh, nullptr,
                                                         F, nullptr, 0, b.hmid, 1, stream)));
-      RETURN_IF_ERROR(weight_grad(b.xn, b.dh, E, F, M, b.partial, dwfc + (size_t)l * E * F,
+      RETURN_IF_ERROR(weight_grad(b.xn, b.dh, E, F, Mp, b.partial, dwfc + (size_t)l * E * F,
                                   stream));
       RETURN_IF_ERROR((gemm<false, true, EPI_F32>(b.dh, F, Wfc, F, M, E, F, nullptr, b.dxn, E,
                                                   nullptr, 0, nullptr, 1, stream)));
@@ -906,13 +942,13 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
       RETURN_IF_ERROR((gemm<false, false, EPI_BF16>(b.xn, E, Wqkv, E3, M, E3, E, b.qkv, nullptr,
                                                     E3, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nc, T, E, stream));
-      RETURN_IF_ERROR(weight_grad(b.att, b.dxb, E, E, M, b.partial, dwproj + (size_t)l * E * E,
+      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, b.m, b.l, nc, T, E, stream));
+      RETURN_IF_ERROR(weight_grad(b.att, b.dxb, E, E, Mp, b.partial, dwproj + (size_t)l * E * E,
                                   stream));
       RETURN_IF_ERROR((gemm<false, true, EPI_BF16>(b.dxb, E, Wproj, E, M, E, E, b.datt, nullptr,
                                                    E, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_bwd<DH>(b.qkv, b.datt, b.dqkv, b.ds, b.pb, nc, T, E, stream));
-      RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, M, b.partial, dwqkv + (size_t)l * E * E3,
+      RETURN_IF_ERROR(attention_bwd<DH>(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, E, stream));
+      RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, Mp, b.partial, dwqkv + (size_t)l * E * E3,
                                   stream));
       RETURN_IF_ERROR((gemm<false, true, EPI_F32>(b.dqkv, E3, Wqkv, E3, M, E, E3, nullptr, b.dxn,
                                                   E, nullptr, 0, nullptr, 1, stream)));

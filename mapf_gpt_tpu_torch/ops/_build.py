@@ -4,8 +4,10 @@ library, loaded with ``ctypes``.
 Each source ``csrc/<name>.cu`` exports ``extern "C"`` functions and includes
 no PyTorch header, so a build takes seconds.  The library goes to
 ``csrc/build/lib<name>-<hash>.so`` (listed in ``.gitignore``), keyed by a
-hash of the source, the flags and the ``-D`` defines a caller passes (a
-kernel built for one width is a library of its own): a second load in the
+hash of the source, of the headers it includes from ``csrc/`` (``#include
+"x.cuh"``, followed through nested includes), the flags and the ``-D``
+defines a caller passes (a kernel built for one width is a library of its
+own): a second load in the
 same process, or in a later process on the same checkout, does not
 rebuild.  A missing ``nvcc`` or a failed build raises with the compiler's
 output.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,12 +52,31 @@ def define_flags(defines: dict[str, int] | None) -> tuple[str, ...]:
     return tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """csrc/<name>.cu and every header it includes with quotes, nested
+    includes too, each once, in the order first reached."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return files
+
+
 def library_path(name: str, defines: dict[str, int] | None = None) -> Path:
-    """Where the library of csrc/<name>.cu goes, keyed by source, flags and
-    defines."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(NVCC_FLAGS + define_flags(defines))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    """Where the library of csrc/<name>.cu goes, keyed by its source and
+    included headers, the flags and the defines."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS + define_flags(defines)).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -16,12 +16,15 @@ Port of ``mapf_gpt_tpu/ops/attention.py``:
 - :func:`attention` dispatches as the JAX one does: "pallas" goes to the
   kernel, anything else to the plain version.
 
-The kernel takes T from 1 to 256, D a multiple of 16 up to 128, bf16 or
-fp32 (:func:`check_shape`).  It reads q, k and v through their strides
-(the last dim contiguous, the others multiples of 16 bytes), so the
-module's views of its fused q|k|v product go in without a copy, and it
-returns a [B, H, T, D] view of a [B, T, H, D] buffer, so the module's
-transpose back to [B, T, H * D] is a view too.
+The kernel takes any T >= 1 and any D from 1 to 128, bf16 or fp32
+(:func:`check_shape`).  In bf16 its tiles are 16 columns wide: for a D
+that is not a multiple of 16 the wrapper pads q, k and v with zero columns
+(which change neither the scores nor the first D outputs) and returns the
+first D columns.  It reads q, k and v through their strides (the last dim
+contiguous, the others multiples of 16 bytes), so the module's views of
+its fused q|k|v product go in without a copy, and it returns a [B, H, T,
+D] view of a [B, T, H, D] buffer, so the module's transpose back to [B, T,
+H * D] is a view too.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import functools
 
 import torch
 
-_T_MAX, _D_MAX = 256, 128
+_D_MAX = 128
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 launches = 0   # kernel launches by attention_pallas; callers may reset it to 0
@@ -48,10 +51,10 @@ def attention_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_shape(t: int, d: int, dtype: torch.dtype) -> None:
     """Raise ValueError, naming the constraint, unless the kernel takes
     T=t, head dim d and `dtype`."""
-    if not 1 <= t <= _T_MAX:
-        raise ValueError(f"attention: T must be 1..{_T_MAX}; got {t}")
-    if d % 16 or not 16 <= d <= _D_MAX:
-        raise ValueError(f"attention: head dim must be a multiple of 16 up to {_D_MAX}; got {d}")
+    if t < 1:
+        raise ValueError(f"attention: T must be at least 1; got {t}")
+    if not 1 <= d <= _D_MAX:
+        raise ValueError(f"attention: head dim must be 1..{_D_MAX}; got {d}")
     if dtype not in _DTYPES:
         raise ValueError(f"attention: dtype must be bfloat16 or float32; got {dtype}")
 
@@ -73,15 +76,17 @@ def _library() -> ctypes.CDLL:
     return bind(_build.load("attention"))
 
 
-def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """x itself if the kernel can read it through its strides (the last
-    dim contiguous, the others and the address multiples of 16 bytes),
-    else a contiguous copy."""
+def _kernel_ready(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """x, zero-padded to d_pad columns, as the kernel reads it: x itself if
+    its strides do (the last dim contiguous, the others and the address
+    multiples of 16 bytes), else a fresh contiguous copy."""
+    if x.shape[-1] != d_pad:
+        return torch.nn.functional.pad(x, (0, d_pad - x.shape[-1]))
     align = 16 // x.element_size()
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 \
             and all(s % align == 0 for s in x.stride()[:3]):
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,23 +112,24 @@ def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention: q, k, v must share a dtype and a device")
     b, h, t, d = q.shape
     check_shape(t, d, q.dtype)
-    q, k, v = (_kernel_ready(x) for x in (q, k, v))
-    buf = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dp = -(-d // 16) * 16 if q.dtype == torch.bfloat16 else d   # bf16 tiles: 16 columns
+    q, k, v = (_kernel_ready(x, dp) for x in (q, k, v))
+    buf = torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
     out = buf.permute(0, 2, 1, 3)
     if b * h == 0:
-        return out
+        return out[..., :d]
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.attention_forward(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), ctypes.addressof(strides), b, h, t, d,
+                                   out.data_ptr(), ctypes.addressof(strides), b, h, t, dp,
                                    float(scale), stream)
     if rc != 0:
         raise RuntimeError("attention kernel launch failed: "
                            f"{lib.attention_error_string(rc).decode()} ({rc})")
     launches += 1
-    return out
+    return out[..., :d]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

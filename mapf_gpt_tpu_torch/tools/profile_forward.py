@@ -22,6 +22,7 @@ import torch
 
 from mapf_gpt_tpu_torch.models.convert import load_model
 from mapf_gpt_tpu_torch.models.gpt import CONFIGS, init_params, make_forward
+from mapf_gpt_tpu_torch.utils.profiling import kernel_times
 
 
 def main() -> None:
@@ -47,16 +48,7 @@ def main() -> None:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / args.reps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.reps):
-            forward(tokens)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3 / args.reps, ev.count / args.reps, ev.key))
+    rows = kernel_times(lambda: forward(tokens), args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -65,7 +57,7 @@ def main() -> None:
           f"{traced:.3f} ms of kernels traced per forward")
     if not rows:
         print("  the profiler recorded no device time")
-    for t, calls, name in sorted(rows, reverse=True):
+    for t, calls, name in rows:
         print(f"  {t:10.3f} ms {100 * t / traced:5.1f} %  {calls:6.1f} launches  {name[:110]}")
 
 

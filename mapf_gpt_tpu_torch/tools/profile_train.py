@@ -29,6 +29,7 @@ from mapf_gpt_tpu_torch.models.convert import load_model
 from mapf_gpt_tpu_torch.models.gpt import CONFIGS, init_params
 from mapf_gpt_tpu_torch.ops.fused_gpt_train import fused_loss_fn
 from mapf_gpt_tpu_torch.parallel.rollout import _tokens_of, batch_reset
+from mapf_gpt_tpu_torch.utils.profiling import kernel_times
 
 AGENTS = 32
 
@@ -70,16 +71,7 @@ def main() -> None:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / args.reps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.reps):
-            micro_batch()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 1e3 / args.reps, ev.count / args.reps, ev.key))
+    rows = kernel_times(micro_batch, args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -88,7 +80,7 @@ def main() -> None:
           f"{traced:.3f} ms of kernels traced per micro-batch")
     if not rows:
         print("  the profiler recorded no device time")
-    for t, calls, name in sorted(rows, reverse=True):
+    for t, calls, name in rows:
         print(f"  {t:10.3f} ms {100 * t / traced:5.1f} %  {calls:6.1f} launches  {name[:110]}")
 
 

@@ -1,4 +1,4 @@
-"""Throughput and MFU meters and a ``torch.profiler`` trace.
+"""Throughput and MFU meters, a ``torch.profiler`` trace and device time by kernel.
 
 The port's counterpart of ``mapf_gpt_tpu/utils/profiling.py``: MFU is
 measured against the card's dense bf16 peak with the PaLM appendix-B flop
@@ -80,3 +80,21 @@ def trace(log_dir: str):
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def kernel_times(fn, reps: int) -> list[tuple[float, float, str]]:
+    """(device ms per call, launches per call, name) of each CUDA kernel
+    that `reps` calls of fn() run, from a ``torch.profiler`` trace, largest
+    first; empty where the profiler records no device time.  Warm fn up
+    before: the trace counts whatever the calls do."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3 / reps, ev.count / reps, ev.key))
+    return sorted(rows, reverse=True)

@@ -1,6 +1,8 @@
 """The kernel build (``ops/_build.py``) without a CUDA toolkit: nvcc is
 looked for and its absence raises; the library is keyed by a hash of the
-source, built once, and a failed build raises with the compiler's output.
+source and of the headers it includes from ``csrc/`` (so a header change
+cannot load a stale library), built once, and a failed build raises with
+the compiler's output.
 A stand-in ``nvcc`` script plays the compiler."""
 
 import os
@@ -41,6 +43,29 @@ def test_library_is_keyed_by_source(csrc):
     assert _build.library_path("k") == first
     (csrc / "k.cu").write_text('extern "C" int k() { return 1; }\n')
     assert _build.library_path("k") != first
+
+
+def test_library_is_keyed_by_included_headers(csrc):
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "t.cuh"\n'
+                               'extern "C" int k() { return T; }\n')
+    (csrc / "t.cuh").write_text('#pragma once\n  #  include "u.cuh"\n#define T U\n')
+    (csrc / "u.cuh").write_text('#define U 1\n')
+    (csrc / "other.cuh").write_text('#define V 1\n')
+    assert [p.name for p in _build.source_files("k")] == ["k.cu", "t.cuh", "u.cuh"]
+    first = _build.library_path("k")
+    (csrc / "other.cuh").write_text('#define V 2\n')   # not included: same library
+    assert _build.library_path("k") == first
+    (csrc / "u.cuh").write_text('#define U 2\n')       # included through t.cuh
+    assert _build.library_path("k") != first
+
+
+def test_kernel_sources_name_the_shared_attention_header():
+    """attention.cu and fused_train.cu share csrc/attn_tile.cuh; each
+    library's key follows it."""
+    for name in ("attention", "fused_train"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "attn_tile.cuh"]
+    for name in ("fused_gpt", "fused_blocks"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu"]
 
 
 def test_build_once_then_reuse(csrc, tmp_path, monkeypatch):

@@ -15,7 +15,15 @@ package (numpy in between, JAX's Pallas kernels in interpret mode):
   ``tests/test_fused_gpt_train.py``: a small config, the 2M's width, the
   padding path (N=10), forced 1-layer chunks and a few SGD steps;
 - the wrappers: CPU tensors take the plain versions, other devices raise,
-  and a width the kernels cannot hold raises before anything is built.
+  and a width the kernels cannot hold raises before anything is built
+  (any T from 1 to 256 is held since the attention's redesign);
+- a test-only emulation in plain PyTorch of the redesigned attention
+  backward's order of work (``csrc/fused_train.cu``: the forward's row
+  statistics, the query side's delta pass then its ds / dq pass over
+  32-key chunks, the key side's dk / dv pass over 32-query chunks, each
+  from the statistics alone) against the attention part of
+  ``train_bwd_reference`` at the 2M's, 6M's and 85M's head dims, within
+  0.08 * max|ref| + 1e-4, and at a T that is not a multiple of the chunks.
 """
 
 import math
@@ -35,6 +43,7 @@ from mapf_gpt_tpu_torch.models.convert import (grads_to_params, load_model,
                                                params_to_state_dict)
 from mapf_gpt_tpu_torch.models.gpt import GPTConfig
 from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt
+from tests.test_torch_attention import LOG2E, emulate_kernel_fwd
 
 SMALL = JGPTConfig(n_layer=2, n_head=2, n_embd=64, block_size=64)
 _init = jax.jit(jinit_params, static_argnums=0)
@@ -229,8 +238,9 @@ def test_wrappers_take_plain_versions_on_cpu_and_raise_elsewhere(small):
 
 @pytest.mark.parametrize("t,e,h,match", [
     (256, 160, 5, None), (256, 256, 8, None), (256, 768, 12, None), (64, 64, 2, None),
-    (256, 192, 4, None), (100, 256, 8, "multiple of 64"),   # head dim 48
-    (256, 96, 1, None), (512, 256, 8, "up to 256"), (256, 250, 4, "not a multiple of n_head"),
+    (256, 192, 4, None), (100, 256, 8, None),   # head dim 48
+    (256, 96, 1, None), (512, 256, 8, "T must be"), (256, 250, 4, "not a multiple of n_head"),
+    (0, 256, 8, "T must be"), (1, 256, 8, None), (200, 768, 12, None), (257, 256, 8, "T must be"),
     (256, 256, 16, None), (256, 384, 4, None), (256, 256, 32, "head dim must be a multiple of 16"),
     (256, 144, 9, "multiple of 32"), (256, 256, 1, "up to 128"),
 ])
@@ -247,3 +257,67 @@ def test_layers_per_call_mirror_jax():
         cfg = _port_cfg(jcfg)
         assert fgt._bwd_layers_per_call(cfg) == jfgt._bwd_layers_per_call(jcfg), name
     assert math.isclose(fgt._gelu_tanh_grad(torch.tensor(0.0)).item(), 0.5)
+
+
+def emulate_kernel_attn_bwd(q, k, v, da, scale, m, l, bc=32):
+    """The attention backward's order of work (csrc/fused_train.cu
+    attn_bwd_q_kernel, attn_bwd_kv_kernel) in plain PyTorch, on [P, T, dh]
+    bf16 and the forward's statistics m, l [P, T]: p = 2^(s scale log2 e -
+    m) / l recomputed from them in every pass.  Returns (dq, dk, dv) bf16."""
+    qf, kf, vf, daf = (x.float() for x in (q, k, v, da))
+    c2 = float(np.float32(scale) * LOG2E)
+    inv = 1.0 / l
+    t = q.shape[1]
+    chunks = [(c0, min(c0 + bc, t)) for c0 in range(0, t, bc)]
+
+    def probs(rows_q, c0, c1):   # p of all queries against keys c0..c1
+        return torch.exp2(rows_q @ kf[:, c0:c1].transpose(1, 2) * c2 - m[..., None]) \
+            * inv[..., None]
+
+    # query side, pass A: delta; pass B: ds and dq
+    delta = torch.zeros_like(m)
+    for c0, c1 in chunks:
+        delta += ((daf @ vf[:, c0:c1].transpose(1, 2)) * probs(qf, c0, c1)).sum(-1)
+    dq = torch.zeros_like(qf)
+    for c0, c1 in chunks:
+        dp = daf @ vf[:, c0:c1].transpose(1, 2)
+        ds = (((dp - delta[..., None]) * probs(qf, c0, c1)) * scale).to(torch.bfloat16)
+        dq += ds.float() @ kf[:, c0:c1]
+    # key side: S^T = K Q^T over query chunks, p and ds from m, l and delta
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for c0, c1 in chunks:
+        pt = torch.exp2(kf @ qf[:, c0:c1].transpose(1, 2) * c2 - m[:, None, c0:c1]) \
+            * inv[:, None, c0:c1]
+        dpt = vf @ daf[:, c0:c1].transpose(1, 2)
+        dst = (((dpt - delta[:, None, c0:c1]) * pt) * scale).to(torch.bfloat16)
+        dv += pt.to(torch.bfloat16).float() @ daf[:, c0:c1]
+        dk += dst.float() @ qf[:, c0:c1]
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", [256, 200])
+@pytest.mark.parametrize("model,e,h", [("2M", 160, 5), ("6M", 256, 8), ("85M", 768, 12)])
+def test_attention_backward_order_of_work_matches_plain_version(model, e, h, t):
+    rng = np.random.RandomState(e + t)
+    n = 2
+    qkv = torch.from_numpy(rng.randn(n, t, 3 * e).astype(np.float32)).to(torch.bfloat16)
+    datt = torch.from_numpy(rng.randn(n, t, e).astype(np.float32) * 0.01).to(torch.bfloat16)
+    dh = e // h
+    scale = 1.0 / math.sqrt(dh)
+    # the attention part of train_bwd_reference, as written there
+    p, q, k, v = fgt._probs(qkv, h)
+    da = fgt._heads(datt, h)
+    pb = p.to(torch.bfloat16)
+    ref_dv = fgt._mm(pb.transpose(-1, -2), da).to(torch.bfloat16)
+    dp = fgt._mm(da, v.transpose(-1, -2))
+    ds = ((dp - (dp * p).sum(-1, keepdim=True)) * p * scale).to(torch.bfloat16)
+    ref_dq = fgt._mm(ds, k).to(torch.bfloat16)
+    ref_dk = fgt._mm(ds.transpose(-1, -2), q).to(torch.bfloat16)
+    # the kernels' order: the forward recompute's statistics, then both sides
+    flat = [x.reshape(n * h, t, dh) for x in (q, k, v, da)]
+    att, m, l = emulate_kernel_fwd(*flat[:3], scale)
+    ref_att = fgt._mm(pb, v).to(torch.bfloat16).reshape(n * h, t, dh)
+    _close(att.float().numpy(), ref_att.float().numpy(), 0.02, 0.02, "att")
+    got = emulate_kernel_attn_bwd(*flat, scale, m, l)
+    for name, g, r in zip(("dq", "dk", "dv"), got, (ref_dq, ref_dk, ref_dv)):
+        _close(g.float().numpy(), r.reshape(n * h, t, dh).float().numpy(), 0.08, 1e-4, name)
