@@ -18,18 +18,24 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    (``checkpoints/MAPF-GPT-2M-r4.pt``) at full width on 512 contexts,
    random tokens from ``--seed`` and the real tokens of a reset batch.
    Logits within atol 0.02 * max|ref| + 0.02 and argmax agreement over the
-   5 action logits >= 95 % (the tolerances of ``tests/test_fused_gpt.py``).
+   5 action logits >= 95 % (the tolerances of ``tests/test_fused_gpt.py``);
+   then 300 random contexts (not a multiple of the grid) cut to T = 200.
 4. 2M rollout: 16 envs x 32 agents x 64 steps on ``random_grid(21, 0.3, s)``
    maps, argmax actions.  Every agent on a free cell, positions unique per
    env, metrics in range, and the e2e kernel's launch counter exactly one
    per step (the layer-stack and attention kernels' 0).  Prints CSR, ISR,
    SoC and env-steps/s.
 5. 2M timing: the kernel on the rollout's 512 contexts beside a whole
-   rollout step; then one forward at 8192 contexts (the rollout benchmark's
-   256 envs x 32 agents), kernel and plain version, beside the card's bound.
+   rollout step and its bound; then one forward at 8192 contexts (the
+   rollout benchmark's 256 envs x 32 agents), kernel and plain version,
+   beside the card's bound.
 6. 6M: phases 3-5 for the trained 6M (``checkpoints/MAPF-GPT-6M-r5.pt``,
-   E=256) through the same e2e kernel: 512 contexts compared, the same
-   16 x 32 x 64 rollout, timing at 8192 contexts.
+   E=256) through the same e2e kernel: 512 contexts compared, T = 200, the
+   same 16 x 32 x 64 rollout, timing at 512 and 8192 contexts.  Then the
+   e2e kernel at the shapes it takes beyond the 2M's and 6M's
+   (``E2E_SHAPES``: head dims 16, 64 and 128, 12 heads, T = 130 and 1),
+   random weights, 300 contexts each, phase 3's tolerances, its counter
+   exactly one a forward.
 7. 85M at full width and depth (12L/12H/768d), weights from
    ``models.gpt.init_params`` under ``--seed``, on the chunked route (plain
    embedding and head, the layer-stack kernel): 128 contexts compared with
@@ -40,16 +46,17 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    ``blocks_reference`` (stream within atol 0.02 * max|ref|); a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
    counter 0; timing at 2048 contexts (the JAX harness's 85M cap).
-8. Widths built on demand: seven widths no published model has, random
+8. Widths built on demand: eight widths no published model has, random
    weights from ``init_params``, 64 contexts each against
    ``fused_logits_reference`` with phase 3's tolerances: E=192/6 heads/4
-   layers (e2e route, the e2e kernel built with -D defines), E=384/6/8
-   (e2e route on the layer-stack kernel), E=512/8/12 (chunked route), and
-   on the layer-stack kernel the widths its N-tile mask and head dims of
-   16 to 128 admit: E=320/10 (n_embd not a multiple of 128), 160/10 and
-   256/16 (head dim 16), 384/4 (head dim 96), 4 layers each; each kernel's
-   counter exactly one.  Each width's whole forward timed at 2048
-   contexts beside its plain version and its bound.
+   layers, 160/10 and 256/16 (head dim 16) on the e2e route and kernel
+   (built with -D defines), E=384/6/8 (e2e route on the layer-stack kernel:
+   n_embd past the e2e kernel's 256), E=512/8/12 (chunked route), and on
+   the layer-stack kernel the widths its N-tile mask and head dims of 16 to
+   128 admit: E=320/10 (n_embd not a multiple of 128), 384/4 (head dim 96),
+   4 layers each, and 512/32/12 (head dim 16, chunked route); each kernel's
+   counter exactly one.  Each width's whole forward timed at 2048 contexts
+   beside its plain version and its bound.
 9. Training kernels (``csrc/fused_train.cu``) against their plain versions
    on the reset batch's tokens: the trained 2M on 512 contexts (two groups
    of 256) and the 6M on 300 (a group of 256 and one of 44), at full width
@@ -154,7 +161,13 @@ N_TIME = 8192                    # 256 envs x 32 agents
 N_TIME_85M = 2048                # the JAX harness's 85M context cap
 PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
 WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12),   # (n_embd, heads, layers) built on demand
-          (320, 10, 4), (160, 10, 4), (256, 16, 4), (384, 4, 4))
+          (320, 10, 4), (160, 10, 4), (256, 16, 4), (384, 4, 4), (512, 32, 12))
+# shapes the e2e kernel takes beyond the 2M's and 6M's, (n_embd, heads, layers, T):
+# head dims 16, 64 and 128, 12 heads, T = 200, 130 and 1 (T = 200 at the 6M's
+# width is phase 6's, on the trained 6M)
+E2E_SHAPES = ((160, 10, 4, 200), (256, 4, 4, 256), (192, 12, 3, 256), (128, 1, 2, 100),
+              (192, 3, 3, 130), (160, 5, 3, 1))
+N_E2E_SHAPES = 300               # not a multiple of the grid's 132 CTAs
 N_WIDTHS = 64                    # contexts of each width's compare
 N_WIDTHS_TIME = 2048             # contexts of each width's timing
 # contexts of the training kernels' compares: the kernels run groups of
@@ -380,10 +393,16 @@ def e2e_model(label: str, model, seed: int, dev) -> dict:
                   compare(f"{label} reset-batch tokens", w, real))
     dt, (launches, _, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
 
+    # T = 200 on the trained weights, 300 contexts (a partial wave of the grid)
+    short = random_tokens(seed + 1, N_E2E_SHAPES, cfg, dev)[:, :200].contiguous()
+    max_err = max(max_err, compare(f"{label} random tokens, T=200", w, short))
+
     # timing: the rollout's own 512 contexts, then the benchmark's 8192
     ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=10)
+    bound_step, _ = e2e_bound(real.shape[0], w, cfg.block_size)
     log(f"[timing] {label} N={real.shape[0]}: kernel {ms_step:.3f} ms of a "
-        f"{1e3 * dt / STEPS:.3f} ms rollout step")
+        f"{1e3 * dt / STEPS:.3f} ms rollout step, bound {bound_step:.3f} ms, "
+        f"{100 * bound_step / ms_step:.2f} % of bound")
     tokens = real.repeat(N_TIME // real.shape[0], 1)
     ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=5)
     plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
@@ -396,7 +415,28 @@ def e2e_model(label: str, model, seed: int, dev) -> dict:
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:182",
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "n_contexts": N_TIME}
+            "n_contexts": N_TIME, "ms_at_512": ms_step, "bound_ms_at_512": bound_step}
+
+
+def e2e_shapes_phase(seed: int, dev) -> float:
+    """The e2e kernel at E2E_SHAPES on N_E2E_SHAPES contexts, random
+    weights from init_params, against fused_logits_reference; the e2e
+    counter exactly one a forward.  Returns the largest max |err|."""
+    err = 0.0
+    for e, h, layers, t in E2E_SHAPES:
+        cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
+        model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e + h + t)),
+                           device=dev)
+        w = fused_gpt.stack_weights(model)
+        if fused_gpt.cuda_plan(e, h, layers, t) != ("e2e", "fused_gpt"):
+            raise RuntimeError(f"e2e shape E={e} H={h} T={t}: not planned on the e2e kernel")
+        tokens = random_tokens(seed + e + t, N_E2E_SHAPES, cfg, dev)[:, :t].contiguous()
+        fused_gpt.launches = fused_blocks.launches = 0
+        err = max(err, compare(f"e2e E={e} H={h} (head dim {e // h}) L={layers} T={t}", w, tokens))
+        if (fused_gpt.launches, fused_blocks.launches) != (1, 0):
+            raise RuntimeError(f"e2e shape E={e} H={h} T={t}: launches (e2e, blocks) "
+                               f"{(fused_gpt.launches, fused_blocks.launches)}, expected (1, 0)")
+    return err
 
 
 def blocks_model(seed: int, dev) -> dict:
@@ -898,6 +938,8 @@ def main() -> int:
         kernel = fused_gpt.cuda_plan(e, h, layers)[1]
         jobs.append((kernel, fused_gpt.e2e_defines(e, h) if kernel == "fused_gpt"
                      else fused_blocks.kernel_defines(e, h)))
+    jobs += [("fused_gpt", fused_gpt.e2e_defines(e, h)) for e, h, _, _ in E2E_SHAPES]
+    jobs = list({_build.library_path(*job): job for job in jobs}.values())   # each library once
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.build(*job), jobs))
@@ -920,6 +962,9 @@ def main() -> int:
     cfg, sd = load_reference_checkpoint(CKPT_6M)
     model_6m = load_model(cfg, sd, device=dev)
     entries.append(e2e_model("6M", model_6m, args.seed, dev))
+    e2e_shapes_err = e2e_shapes_phase(args.seed, dev)
+    for entry in entries:
+        entry["max_abs_err_other_shapes"] = e2e_shapes_err
     entries.append(blocks_model(args.seed, dev))
     log(f"[done] inference phases {time.perf_counter() - t_start:.1f} s")
 

@@ -1,4 +1,4 @@
-"""Fused GPT inference forward: tokens [N, 256] -> last-position logits.
+"""Fused GPT inference forward: tokens [N, T] -> last-position logits.
 
 Port of ``mapf_gpt_tpu/ops/fused_gpt.py``'s ``fused_logits`` and its two
 routes, chosen as the JAX package chooses them
@@ -20,9 +20,10 @@ routes, chosen as the JAX package chooses them
 
 Which kernel runs a route on CUDA is the card's choice (:func:`cuda_plan`),
 and the width is built on first use: the e2e route runs on the e2e kernel
-where its constraints hold (head dim 32, at most 8 heads, its shared memory
-within a block's; the 2M's and 6M's widths come from the source as it
-stands, any other from ``-DFUSED_GPT_E/H/CH``), and otherwise as the same
+where its constraints hold (:func:`e2e_unfit`: T from 1 to 256, any number
+of heads with head dims multiples of 16 from 16 to 128, n_embd up to 256;
+the 2M's and 6M's widths come from the source as it stands, any other from
+``-DFUSED_GPT_E/H``), and otherwise as the same
 function in three steps: the plain e2e embedding, the layer-stack kernel
 over all layers with the last thinned, the plain e2e head.  A width neither
 kernel can hold raises ``ValueError`` before ``nvcc`` starts.
@@ -168,23 +169,56 @@ def fused_logits_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tenso
 
 _DEFAULT_WIDTHS = ((160, 5), (256, 8))   # built by the source with no defines (2M, 6M)
 _SMEM_LIMIT = 232448                      # shared memory a block can have on sm_90
-_T, _WARPS = 256, 8
+# the e2e kernel's constants (csrc/fused_gpt.cu): longest T, rows of a half,
+# weight tiles [_KS x _NT] (q|k|v, projection), ring slots
+_TMAX, _HALF, _KS, _NT, _MAX_STAGES = 256, 128, 64, 128, 4
+_EPI_BYTES = 8 * 16 * 40 * 2              # the warps' q|k|v store stages
+_THIN_PART = 256 * 8                      # the thin path's partial sums (floats)
+_MAX_E2E_EMBD = 256                       # fc2 sums of 16 rows x E: E / 2 registers a lane
 
 
-def e2e_chunk(e: int, n_head: int, t: int = _T) -> int | None:
-    """The e2e kernel's CH (keys / hidden columns per chunk) for this width:
-    the largest that meets the static_asserts of ``Fwd`` in
-    csrc/fused_gpt.cu, or None where the kernel cannot hold the width."""
-    if t != _T or n_head <= 0 or e % n_head or e // n_head != 32 or n_head > _WARPS:
-        return None
-    f = 4 * e
-    for ch in (128, 64, 32, 16):
-        scratch = 16 * 16 * 4 + 16 * ch * 2                    # a warp's stage + P tile
-        smem = t * e * 2 + _WARPS * (16 * e * 2 + scratch)
-        thin_floats = 5 * e + n_head * t + 32 + f
-        if t % ch == 0 and f % ch == 0 and thin_floats * 4 <= _WARPS * scratch \
-                and smem <= _SMEM_LIMIT:
-            return ch
+def e2e_layout(e: int, n_head: int) -> dict[str, int]:
+    """The e2e kernel's shared-memory layout for this width, as ``Fwd`` in
+    csrc/fused_gpt.cu computes it, or ValueError naming the constraint
+    (its static_asserts) where the kernel cannot hold the width."""
+    if n_head <= 0 or e % n_head:
+        raise ValueError(f"n_embd={e} is not a multiple of {n_head} heads")
+    dh = e // n_head
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"head dim {dh} is not a multiple of 16 from 16 to 128")
+    if e > _MAX_E2E_EMBD:
+        raise ValueError(f"n_embd={e} > {_MAX_E2E_EMBD}: the fc2 sums of 16 rows take "
+                         "n_embd / 2 registers a lane")
+    half_bytes = _HALF * (e + 8) * 2                    # a half of the stream
+    sa_bytes = _HALF * e * 2                            # the A rows of a half
+    fc = 64 if e <= 192 else 32                         # hidden columns of an MLP chunk
+    stage_bytes = 2 * max(_KS * _NT, e * (fc + 8), fc * (e + 8))
+    resident = 2 * half_bytes + sa_bytes + _MAX_STAGES * stage_bytes + _EPI_BYTES <= _SMEM_LIMIT
+    sx_bytes = (2 if resident else 1) * half_bytes
+    stages = min(_MAX_STAGES,
+                 (_SMEM_LIMIT - sx_bytes - sa_bytes - _EPI_BYTES) // stage_bytes)
+    kv_bytes = 2 * _TMAX * (dh + 8) * 2
+    kv_bufs = 2 if sx_bytes + 2 * kv_bytes <= _SMEM_LIMIT else 1
+    smem = max(sx_bytes + sa_bytes + stages * stage_bytes + _EPI_BYTES,
+               sx_bytes + kv_bufs * kv_bytes)
+    thin_bytes = 4 * (_THIN_PART + 11 * e + n_head + n_head * _TMAX)
+    if stages < 3 or smem > _SMEM_LIMIT or thin_bytes > stages * stage_bytes:
+        raise ValueError(f"n_embd={e}, {n_head} heads: {smem} bytes of shared memory with "
+                         f"{stages} weight stages, over a block's {_SMEM_LIMIT}")
+    return {"resident": int(resident), "stages": stages, "kv_bufs": kv_bufs,
+            "smem_bytes": smem, "ws_elems": _TMAX * 3 * e + (0 if resident else 2 * _HALF * e)}
+
+
+def e2e_unfit(e: int, n_head: int, t: int = _TMAX) -> str | None:
+    """Why the e2e kernel cannot take this shape, or None where it can:
+    T from 1 to 256, head dims multiples of 16 from 16 to 128, n_embd up to
+    256, its shared memory within a block's."""
+    if not 1 <= t <= _TMAX:
+        return f"T={t} is outside 1..{_TMAX}"
+    try:
+        e2e_layout(e, n_head)
+    except ValueError as err:
+        return str(err)
     return None
 
 
@@ -193,37 +227,38 @@ def e2e_defines(e: int, n_head: int) -> dict[str, int]:
     2M's and 6M's)."""
     if (e, n_head) in _DEFAULT_WIDTHS:
         return {}
-    ch = e2e_chunk(e, n_head)
-    if ch is None:
-        raise ValueError(f"fused_gpt: the e2e kernel cannot hold n_embd={e}, {n_head} heads")
-    return {"FUSED_GPT_E": e, "FUSED_GPT_H": n_head, "FUSED_GPT_CH": ch}
+    why = e2e_unfit(e, n_head)
+    if why is not None:
+        raise ValueError(f"fused_gpt: the e2e kernel cannot hold n_embd={e}, {n_head} heads: "
+                         f"{why}")
+    return {"FUSED_GPT_E": e, "FUSED_GPT_H": n_head}
 
 
-def cuda_plan(e: int, n_head: int, layers: int, t: int = _T) -> tuple[str, str]:
+def cuda_plan(e: int, n_head: int, layers: int, t: int = _TMAX) -> tuple[str, str]:
     """(route, kernel) that :func:`fused_logits` takes on CUDA for this
     shape, without building anything: route "e2e" or "chunked" (the JAX
     package's choice), kernel "fused_gpt" (the e2e kernel) or
     "fused_blocks" (the layer-stack kernel).  Raises ValueError, naming the
-    constraint, for a width neither kernel can hold."""
+    constraint, for a shape neither kernel can hold."""
     route = _route(e, layers)
-    if route == "e2e" and e2e_chunk(e, n_head, t) is not None:
+    why = e2e_unfit(e, n_head, t) if route == "e2e" else None
+    if route == "e2e" and why is None:
         return route, "fused_gpt"
     try:
         fused_blocks.check_width(t, e, n_head)
     except ValueError as err:
+        e2e = f"the e2e kernel cannot: {why}; " if why else ""
         raise ValueError(f"fused_gpt: no kernel for n_embd={e}, {n_head} heads, T={t} "
-                         f"on the {route} route: the e2e kernel needs head dim 32, at most "
-                         f"{_WARPS} heads, T={_T} and its shared memory within a block's; {err}"
-                         ) from None
+                         f"on the {route} route: {e2e}{err}") from None
     return route, "fused_blocks"
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from csrc/fused_gpt.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_gpt_config.argtypes = [i] + [ctypes.POINTER(i)] * 5
+    lib.fused_gpt_config.argtypes = [i] + [ctypes.POINTER(i)] * 6
     lib.fused_gpt_config.restype = i
-    lib.fused_gpt_forward.argtypes = [i, i] + [p] * 13 + [i] * 4 + [p]
+    lib.fused_gpt_forward.argtypes = [i, i] + [p] * 13 + [i] * 5 + [p]
     lib.fused_gpt_forward.restype = i
     lib.fused_gpt_error_string.argtypes = [i]
     lib.fused_gpt_error_string.restype = ctypes.c_char_p
@@ -245,10 +280,11 @@ def kernel_config(e: int = 160, n_head: int = 5) -> dict[tuple[int, int], dict[s
     lib = _library(e, n_head)
     built = {}
     for i in range(16):
-        vals = [ctypes.c_int() for _ in range(5)]
+        vals = [ctypes.c_int() for _ in range(6)]
         if lib.fused_gpt_config(i, *[ctypes.byref(v) for v in vals]):
             break
-        cfg = dict(zip(("t", "e", "h", "max_vocab", "smem_bytes"), (v.value for v in vals)))
+        cfg = dict(zip(("t", "e", "h", "max_vocab", "smem_bytes", "ws_elems"),
+                       (v.value for v in vals)))
         built[(cfg["e"], cfg["h"])] = cfg
     return built
 
@@ -259,9 +295,9 @@ def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     layers, e, _ = w.wqkv.shape
     lib = _library(e, w.n_head)
     cfg = kernel_config(e, w.n_head).get((e, w.n_head))
-    if cfg is None or t != cfg["t"]:
+    if cfg is None or not 1 <= t <= cfg["t"]:
         raise ValueError(
-            f"fused_gpt: the library is built for T=256 and (n_embd, n_head) in "
+            f"fused_gpt: the library is built for T in 1..{_TMAX} and (n_embd, n_head) in "
             f"{sorted(kernel_config(e, w.n_head))}; got T={t}, n_embd={e}, {w.n_head} heads")
     vocab = w.wte.shape[0]
     if vocab > cfg["max_vocab"]:
@@ -287,14 +323,14 @@ def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     grid = min(n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    workspace = torch.empty((grid, t, 3 * e), dtype=torch.bfloat16, device=dev)
+    workspace = torch.empty((grid, cfg["ws_elems"]), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_gpt_forward(
             e, w.n_head, tokens.data_ptr(), w.wte.data_ptr(), w.wpe.data_ptr(),
             w.wht.data_ptr(), w.wqkv.data_ptr(), w.wproj.data_ptr(), w.wfc.data_ptr(),
             w.wfc2.data_ptr(), w.g1.data_ptr(), w.g2.data_ptr(), w.gf.data_ptr(),
-            out.data_ptr(), workspace.data_ptr(), n, layers, vocab, grid, stream)
+            out.data_ptr(), workspace.data_ptr(), n, t, layers, vocab, grid, stream)
     if rc != 0:
         raise RuntimeError("fused_gpt kernel launch failed: "
                            f"{lib.fused_gpt_error_string(rc).decode()} ({rc})")

@@ -3,12 +3,16 @@
     python3 -m mapf_gpt_tpu_torch.tools.kernel_phases [--model 2M] [--n 8192] [--seed 0]
 
 Builds ``csrc/fused_gpt.cu`` as it is and in variants that each leave one
-phase out (QKV products, attention, projection + MLP, the thinned last
-position), all with the same nvcc flags and started together, then times
-each on the same tokens with the trained weights of ``--model`` (2M or
-6M, the kernel's two widths).  A phase's share is
-the full kernel's time minus the time without it.  The variants' logits
-are wrong by construction; only their times are used.  Needs a CUDA GPU.
+phase out (the LN1 + q|k|v products, attention, the projection, the LN2 +
+MLP, the thinned last position), and one that issues no weight-tile copies
+into the ring (the products then read stale tiles: what streaming the
+weights from L2 costs), all with the same nvcc flags and started together,
+then times each on the same tokens with the trained weights of ``--model``
+(2M or 6M, the kernel's two default widths).  A phase's share is the full
+kernel's time minus the time without it; removing a phase also changes the
+registers the compiler gives the rest, so the shares need not add up.  The
+variants' logits are wrong by construction; only their times are used.
+Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -32,12 +36,26 @@ CHECKPOINTS = {
 
 # phase -> (text that opens it, text that closes it) in the kernel body
 PHASES = {
-    "qkv": ("          qkv_rows(a, Wqkv,", "qkv + r0 * E3, stage);\n"),
-    "attention": ("          for (int h = 0; h < H; ++h)\n",
-                  "attention_item(qkv, r0, h, xw, stage, pbuf);\n"),
-    "proj_mlp": ("          proj_mlp_rows(r0,", "g2 + l * E, stage, pbuf);\n"),
-    "last_position": ("          last_position(qkv,", "thin, out + (size_t)c * vocab);\n"),
+    "qkv": ("if (active) ln_rows(xh(hf)", "wg_active, active, ring, epi);\n"),
+    "attention": ("attention(qkv, T, kv);\n", "attention(qkv, T, kv);\n"),
+    "proj": ("proj_half(xh(hf),", "Wproj, wg_active, active, ring);\n"),
+    "mlp": ("mlp_half(xh(hf),", "g2 + l * E, active, ring);\n"),
+    "last_position": ("last_position(qkv, xh(", "out + (size_t)c * vocab);\n"),
 }
+
+
+# the weight ring's copies, each found once in the pipeline (prologue, steady state)
+WEIGHT_LOADS = (("if (s < n) load(", "if (s < n && n < 0) load("),
+                ("if (j < n) load(", "if (j < n && n < 0) load("))
+
+
+def no_weight_loads(src: str) -> str:
+    """The kernel source with the weight ring's copies never issued."""
+    for old, new in WEIGHT_LOADS:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{old!r} not found once in fused_gpt.cu")
+        src = src.replace(old, new)
+    return src
 
 
 def variant_source(src: str, phase: str) -> str:
@@ -53,7 +71,8 @@ def variant_source(src: str, phase: str) -> str:
 def build_variants(out_dir: str) -> dict[str, str]:
     src = (_build.CSRC / "fused_gpt.cu").read_text()
     os.makedirs(out_dir, exist_ok=True)
-    sources = {"full": src, **{p: variant_source(src, p) for p in PHASES}}
+    sources = {"full": src, **{p: variant_source(src, p) for p in PHASES},
+               "weight_loads": no_weight_loads(src)}
     nvcc = _build.find_nvcc()
 
     def build(item):
@@ -61,7 +80,7 @@ def build_variants(out_dir: str) -> dict[str, str]:
         cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"lib{name}.so")
         with open(cu, "w") as f:
             f.write(text)
-        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", so, cu],
+        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", so, cu],
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{proc.stderr}")
@@ -100,6 +119,7 @@ def main() -> None:
             torch.cuda.synchronize()
         times[name] = start.elapsed_time(end) / args.reps
     full = times.pop("full")
+    loads = times.pop("weight_loads")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -109,7 +129,9 @@ def main() -> None:
               f"(kernel without it {t:.3f} ms)")
     rest = full - sum(full - t for t in times.values())
     print(f"  {'rest':14s} {rest:8.3f} ms  {100 * rest / full:5.1f} %  "
-          "(embedding, LayerNorms, barriers)")
+          "(embedding, the 6M's half swaps, barriers)")
+    print(f"  {'weight loads':14s} {full - loads:8.3f} ms  {100 * (full - loads) / full:5.1f} %  "
+          f"(kernel without the ring's copies {loads:.3f} ms; across the phases above)")
 
 
 if __name__ == "__main__":

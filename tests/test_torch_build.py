@@ -60,12 +60,14 @@ def test_library_is_keyed_by_included_headers(csrc):
 
 
 def test_kernel_sources_name_the_shared_attention_header():
-    """attention.cu and fused_train.cu share csrc/attn_tile.cuh; each
-    library's key follows it."""
+    """attention.cu, fused_train.cu and fused_gpt.cu share csrc/attn_tile.cuh,
+    and fused_gpt.cu includes csrc/wgmma.cuh too; each library's key follows
+    the headers its source includes."""
     for name in ("attention", "fused_train"):
         assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "attn_tile.cuh"]
-    for name in ("fused_gpt", "fused_blocks"):
-        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu"]
+    assert [p.name for p in _build.source_files("fused_gpt")] == [
+        "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
+    assert [p.name for p in _build.source_files("fused_blocks")] == ["fused_blocks.cu"]
 
 
 def test_build_once_then_reuse(csrc, tmp_path, monkeypatch):
@@ -98,4 +100,6 @@ def test_kernel_phase_variants_find_each_phase_once():
         variant = kernel_phases.variant_source(src, phase)
         assert variant.count("#if 0\n") == 1 and len(variant) == len(src) + len("#if 0\n#endif\n")
     with pytest.raises(RuntimeError, match="not found once"):
-        kernel_phases.variant_source(src.replace("qkv_rows(a, Wqkv,", "qkv_rows(a,  Wqkv,"), "qkv")
+        kernel_phases.variant_source(src.replace("ln_rows(xh(hf)", "ln_rows(xh( hf)"), "qkv")
+    # the variant without weight-tile copies edits the ring's two loads
+    assert kernel_phases.no_weight_loads(src).count("&& n < 0) load(") == 2

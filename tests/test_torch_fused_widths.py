@@ -3,11 +3,12 @@ ids, without a CUDA toolkit:
 
 - ``fused_gpt.cuda_plan`` picks the JAX package's route and the kernel that
   runs it on CUDA for (160, 5), (256, 8), (768, 12), (192, 6), (384, 6),
-  (512, 8), (320, 10), (160, 10), (256, 16) and (384, 4), computing the e2e
-  kernel's chunk without building anything; a width neither kernel can
-  hold (n_embd not a multiple of 32, a head dim not a multiple of 16, too
-  many heads for the thin attention's shared memory) raises ``ValueError``
-  naming the constraint, before ``nvcc`` would start;
+  (512, 8), (320, 10), (160, 10), (256, 16), (384, 4) and (512, 32), and
+  ``e2e_layout`` mirrors the e2e kernel's budgets, without building
+  anything; a shape neither kernel can hold (n_embd not a multiple of 32, a
+  head dim not a multiple of 16, too many heads for the thin attention's
+  shared memory, T outside 1..256, or T != 256 past the e2e kernel's width)
+  raises ``ValueError`` naming the constraint, before ``nvcc`` would start;
 - ``_build`` passes a caller's defines to ``nvcc`` and keys the library by
   them (a stand-in ``nvcc`` plays the compiler);
 - the e2e route run as three steps (the plain bf16 embedding,
@@ -43,17 +44,19 @@ from mapf_gpt_tpu_torch.ops.fused_blocks import blocks_reference, ln_f32
     (160, 5, 5, "e2e", "fused_gpt", {}),
     (256, 8, 8, "e2e", "fused_gpt", {}),
     (768, 12, 12, "chunked", "fused_blocks", {}),
-    (192, 6, 4, "e2e", "fused_gpt",
-     {"FUSED_GPT_E": 192, "FUSED_GPT_H": 6, "FUSED_GPT_CH": 128}),
+    (192, 6, 4, "e2e", "fused_gpt", {"FUSED_GPT_E": 192, "FUSED_GPT_H": 6}),
     (384, 6, 8, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 384, "FUSED_BLOCKS_DH": 64}),
     (512, 8, 12, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 512, "FUSED_BLOCKS_DH": 64}),
-    # n_embd not a multiple of 128, head dims 16 and 96: built since the layer-stack kernel
-    # masks its N tiles and takes any head dim that is a multiple of 16 up to 128
+    # n_embd above the e2e kernel's 256 goes to the layer-stack kernel, which masks its
+    # N tiles (320) and takes head dims that are multiples of 16 up to 128 (96)
     (320, 10, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 320, "FUSED_BLOCKS_DH": 32}),
-    (160, 10, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 160, "FUSED_BLOCKS_DH": 16}),
-    (256, 16, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 256, "FUSED_BLOCKS_DH": 16}),
+    # head dim 16, 10 and 16 heads: the e2e kernel takes any heads and head dims 16-128
+    (160, 10, 4, "e2e", "fused_gpt", {"FUSED_GPT_E": 160, "FUSED_GPT_H": 10}),
+    (256, 16, 4, "e2e", "fused_gpt", {"FUSED_GPT_E": 256, "FUSED_GPT_H": 16}),
     (384, 4, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 384, "FUSED_BLOCKS_DH": 96}),
     (160, 5, 90, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 160, "FUSED_BLOCKS_DH": 32}),
+    # the chunked route with head dim 16 stays on the layer-stack kernel
+    (512, 32, 12, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 512, "FUSED_BLOCKS_DH": 16}),
 ])
 def test_cuda_plan_without_building(monkeypatch, e, h, layers, route, kernel, defines):
     monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
@@ -66,27 +69,42 @@ def test_cuda_plan_without_building(monkeypatch, e, h, layers, route, kernel, de
 
 
 def test_e2e_chunk_reproduces_the_published_builds():
-    # the source's own instantiations: Fwd<160, 5, 128> and Fwd<256, 8, 64>
-    assert fused_gpt.e2e_chunk(160, 5) == 128 and fused_gpt.e2e_chunk(256, 8) == 64
+    """e2e_layout mirrors Fwd in csrc/fused_gpt.cu: the source's own
+    instantiations, Fwd<160, 5> and Fwd<256, 8>, and the budgets its header
+    note states (the 2M's stream stays in shared memory, the 6M's parks a
+    half), and the widths it refuses."""
     src = (_build.CSRC / "fused_gpt.cu").read_text()
-    assert "Fwd<160, 5, 128>" in src and "Fwd<256, 8, 64>" in src
-    for e, h in ((384, 12), (320, 5), (160, 10), (256, 4)):   # 12 heads; head dim 64, 16, 64
-        assert fused_gpt.e2e_chunk(e, h) is None
+    assert "Fwd<160, 5>;" in src and "Fwd<256, 8>;" in src
+    assert fused_gpt.e2e_layout(160, 5) == {"resident": 1, "stages": 4, "kv_bufs": 2,
+                                            "smem_bytes": 229376, "ws_elems": 256 * 480}
+    assert fused_gpt.e2e_layout(256, 8) == {"resident": 0, "stages": 4, "kv_bufs": 2,
+                                            "smem_bytes": 225280,
+                                            "ws_elems": 256 * 768 + 2 * 128 * 256}
+    for size in ("229,376", "225,280", "512 KiB"):
+        assert size in src
+    # 12 heads, head dims 64, 16 and 128: taken; n_embd past 256, head dims 8 and 40: not
+    for e, h in ((192, 12), (256, 4), (160, 10), (256, 2)):
+        assert fused_gpt.e2e_unfit(e, h) is None
+    for e, h in ((384, 12), (320, 10), (192, 24), (200, 5)):
+        assert fused_gpt.e2e_unfit(e, h) is not None
 
 
-@pytest.mark.parametrize("e,h,match", [
-    (144, 9, "multiple of 32"),                    # head dim 16, n_embd % 32 != 0
-    (192, 24, "head dim must be a multiple of 16"),   # head dim 8
-    (4096, 256, "thin attention"),                 # 256 heads' scores over 227 KB
-    (250, 5, "head dim"),
+@pytest.mark.parametrize("e,h,t,match", [
+    (336, 21, 256, "multiple of 32"),              # head dim 16, n_embd % 32 != 0, past 256
+    (192, 24, 256, "head dim must be a multiple of 16"),   # head dim 8
+    (4096, 256, 256, "thin attention"),            # 256 heads' scores over 227 KB
+    (250, 5, 256, "head dim"),
+    (160, 5, 300, "T=300 is outside 1..256"),      # past the e2e kernel's T
+    (320, 10, 200, "T must be 256"),               # past the e2e kernel's width, T != 256
 ])
-def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, match):
+def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, t, match):
     monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
     monkeypatch.setattr(_build, "find_nvcc", lambda: pytest.fail("looked for nvcc"))
     with pytest.raises(ValueError, match=match):
-        fused_gpt.cuda_plan(e, h, 4)
-    with pytest.raises(ValueError):
-        fused_gpt.e2e_defines(e, h)
+        fused_gpt.cuda_plan(e, h, 4, t)
+    if t == 256:
+        with pytest.raises(ValueError):
+            fused_gpt.e2e_defines(e, h)
 
 
 def test_blocks_width_checks():
