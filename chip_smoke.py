@@ -33,9 +33,11 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    E=256) through the same e2e kernel: 512 contexts compared, T = 200, the
    same 16 x 32 x 64 rollout, timing at 512 and 8192 contexts.  Then the
    e2e kernel at the shapes it takes beyond the 2M's and 6M's
-   (``E2E_SHAPES``: head dims 16, 64 and 128, 12 heads, T = 130 and 1),
-   random weights, 300 contexts each, phase 3's tolerances, its counter
-   exactly one a forward.
+   (``E2E_SHAPES``: head dims 16, 64 and 128, 12 heads, T = 130 and 1,
+   n_embd 144), random weights, 300 contexts each, phase 3's tolerances,
+   its counter exactly one a forward; the last shape (head dim 128, T =
+   130) with the layers' matrices scaled 3x, so that the layers and not
+   the embedding set the logits.
 7. 85M at full width and depth (12L/12H/768d), weights from
    ``models.gpt.init_params`` under ``--seed``, on the chunked route (plain
    embedding and head, the layer-stack kernel): 128 contexts compared with
@@ -162,11 +164,17 @@ N_TIME_85M = 2048                # the JAX harness's 85M context cap
 PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
 WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12),   # (n_embd, heads, layers) built on demand
           (320, 10, 4), (160, 10, 4), (256, 16, 4), (384, 4, 4), (512, 32, 12))
-# shapes the e2e kernel takes beyond the 2M's and 6M's, (n_embd, heads, layers, T):
-# head dims 16, 64 and 128, 12 heads, T = 200, 130 and 1 (T = 200 at the 6M's
-# width is phase 6's, on the trained 6M)
-E2E_SHAPES = ((160, 10, 4, 200), (256, 4, 4, 256), (192, 12, 3, 256), (128, 1, 2, 100),
-              (192, 3, 3, 130), (160, 5, 3, 1))
+# shapes the e2e kernel takes beyond the 2M's and 6M's, (n_embd, heads, layers, T,
+# scale of the layers' matrices): head dims 16, 64 and 128, 12 heads, T = 200, 130
+# and 1 (T = 200 at the 6M's width is phase 6's, on the trained 6M), n_embd 144
+# (not a multiple of 32: a K slab of 16 rows, a q|k|v tile of 48 columns); the last
+# at head dim 128 and T = 130 (keys 130 .. 191 of the last chunk masked) with the
+# layers' matrices 3x init_params', so that the layers set the logits and a wrong
+# attention (a denominator counting the masked keys) moves them by several
+# tolerances, which at std 0.02 it may not
+E2E_SHAPES = ((160, 10, 4, 200, 1.0), (256, 4, 4, 256, 1.0), (192, 12, 3, 256, 1.0),
+              (128, 1, 2, 100, 1.0), (192, 3, 3, 130, 1.0), (160, 5, 3, 1, 1.0),
+              (144, 9, 3, 200, 1.0), (256, 2, 2, 130, 3.0))
 N_E2E_SHAPES = 300               # not a multiple of the grid's 132 CTAs
 N_WIDTHS = 64                    # contexts of each width's compare
 N_WIDTHS_TIME = 2048             # contexts of each width's timing
@@ -423,16 +431,20 @@ def e2e_shapes_phase(seed: int, dev) -> float:
     weights from init_params, against fused_logits_reference; the e2e
     counter exactly one a forward.  Returns the largest max |err|."""
     err = 0.0
-    for e, h, layers, t in E2E_SHAPES:
+    for e, h, layers, t, scale in E2E_SHAPES:
         cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
-        model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e + h + t)),
-                           device=dev)
+        sd = init_params(cfg, torch.Generator().manual_seed(seed + e + h + t))
+        for k in sd:
+            if k.startswith("transformer.h.") and ".ln_" not in k:
+                sd[k] = sd[k] * scale
+        model = load_model(cfg, sd, device=dev)
         w = fused_gpt.stack_weights(model)
         if fused_gpt.cuda_plan(e, h, layers, t) != ("e2e", "fused_gpt"):
             raise RuntimeError(f"e2e shape E={e} H={h} T={t}: not planned on the e2e kernel")
         tokens = random_tokens(seed + e + t, N_E2E_SHAPES, cfg, dev)[:, :t].contiguous()
         fused_gpt.launches = fused_blocks.launches = 0
-        err = max(err, compare(f"e2e E={e} H={h} (head dim {e // h}) L={layers} T={t}", w, tokens))
+        err = max(err, compare(f"e2e E={e} H={h} (head dim {e // h}) L={layers} T={t} "
+                               f"weights x{scale:g}", w, tokens))
         if (fused_gpt.launches, fused_blocks.launches) != (1, 0):
             raise RuntimeError(f"e2e shape E={e} H={h} T={t}: launches (e2e, blocks) "
                                f"{(fused_gpt.launches, fused_blocks.launches)}, expected (1, 0)")
@@ -938,7 +950,7 @@ def main() -> int:
         kernel = fused_gpt.cuda_plan(e, h, layers)[1]
         jobs.append((kernel, fused_gpt.e2e_defines(e, h) if kernel == "fused_gpt"
                      else fused_blocks.kernel_defines(e, h)))
-    jobs += [("fused_gpt", fused_gpt.e2e_defines(e, h)) for e, h, _, _ in E2E_SHAPES]
+    jobs += [("fused_gpt", fused_gpt.e2e_defines(e, h)) for e, h, *_ in E2E_SHAPES]
     jobs = list({_build.library_path(*job): job for job in jobs}.values())   # each library once
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:

@@ -2,7 +2,8 @@
 // logits [N, vocab] in one launch, for any T from 1 to 256.  Built with no
 // defines for the 2M (E=160, 5 heads) and the 6M (E=256, 8 heads); built with
 // -DFUSED_GPT_E=<E> -DFUSED_GPT_H=<heads> for that one width instead
-// (ops/fused_gpt.py checks the static_asserts of Fwd before nvcc starts).
+// (ops/fused_gpt.py checks the shape rules of Fwd's static_asserts before
+// nvcc starts).
 // Any number of heads with a head dim that is a multiple of 16 from 16 to
 // 128, and E up to 256.
 //
@@ -79,8 +80,8 @@
 //   * the thinned last layer's row T-1 and the head run as fp32 dot products
 //     over the CTA, weights from L2 (one row a context): 8 columns a thread
 //     by 16-byte loads, the depth split in ranges added in a fixed order;
-//   * GELU's tanh is tanh.approx (one special-function op; its error is
-//     below the bf16 rounding of GELU's output).
+//   * tanh GELU as x * sigmoid(2u) (one ex2.approx and a fast division,
+//     within a few fp32 ulp of the accurate tanh's; see gelu_tanh).
 // Budgets (shared memory a block can have: 232,448 bytes; 255 registers a
 // thread at one CTA of 256 threads an SM):
 //   6M, E=256: the stream of one half (128 x 264 bf16, 67,584 B; the other
@@ -154,13 +155,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// tanh-approximated GELU, tanh by the special-function unit (tanh.approx:
-// about 2^-11 relative error, below the bf16 rounding that follows)
+// tanh-approximated GELU, 0.5 x (1 + tanh(u)) written as x * sigmoid(2u) =
+// x / (1 + 2^(-2u log2(e))): one ex2.approx (relative error about 2^-22) and
+// a fast division, so the result stays within a few fp32 ulp of the
+// accurate tanh's, with no cancellation in the negative tail (where
+// 1 + tanh(u) is small).  For u below about -44 the power is inf and the
+// result -0.
 __device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  float t;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(k0 * (x + 0.044715f * x * x * x)));
-  return 0.5f * x * (1.f + t);
+  const float k0 = 0.7978845608028654f;           // sqrt(2 / pi)
+  const float k1 = -2.f * 1.4426950408889634f;    // -2 log2(e)
+  const float u = k0 * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.f + attn::ex2(k1 * u));
 }
 
 // Two bf16 of the workspace, read through L2 (the CTA wrote them).

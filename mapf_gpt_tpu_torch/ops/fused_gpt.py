@@ -168,57 +168,26 @@ def fused_logits_reference(w: FusedWeights, tokens: torch.Tensor) -> torch.Tenso
 
 
 _DEFAULT_WIDTHS = ((160, 5), (256, 8))   # built by the source with no defines (2M, 6M)
-_SMEM_LIMIT = 232448                      # shared memory a block can have on sm_90
-# the e2e kernel's constants (csrc/fused_gpt.cu): longest T, rows of a half,
-# weight tiles [_KS x _NT] (q|k|v, projection), ring slots
-_TMAX, _HALF, _KS, _NT, _MAX_STAGES = 256, 128, 64, 128, 4
-_EPI_BYTES = 8 * 16 * 40 * 2              # the warps' q|k|v store stages
-_THIN_PART = 256 * 8                      # the thin path's partial sums (floats)
+_TMAX = 256                               # the e2e kernel's longest T
 _MAX_E2E_EMBD = 256                       # fc2 sums of 16 rows x E: E / 2 registers a lane
 
 
-def e2e_layout(e: int, n_head: int) -> dict[str, int]:
-    """The e2e kernel's shared-memory layout for this width, as ``Fwd`` in
-    csrc/fused_gpt.cu computes it, or ValueError naming the constraint
-    (its static_asserts) where the kernel cannot hold the width."""
-    if n_head <= 0 or e % n_head:
-        raise ValueError(f"n_embd={e} is not a multiple of {n_head} heads")
-    dh = e // n_head
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"head dim {dh} is not a multiple of 16 from 16 to 128")
-    if e > _MAX_E2E_EMBD:
-        raise ValueError(f"n_embd={e} > {_MAX_E2E_EMBD}: the fc2 sums of 16 rows take "
-                         "n_embd / 2 registers a lane")
-    half_bytes = _HALF * (e + 8) * 2                    # a half of the stream
-    sa_bytes = _HALF * e * 2                            # the A rows of a half
-    fc = 64 if e <= 192 else 32                         # hidden columns of an MLP chunk
-    stage_bytes = 2 * max(_KS * _NT, e * (fc + 8), fc * (e + 8))
-    resident = 2 * half_bytes + sa_bytes + _MAX_STAGES * stage_bytes + _EPI_BYTES <= _SMEM_LIMIT
-    sx_bytes = (2 if resident else 1) * half_bytes
-    stages = min(_MAX_STAGES,
-                 (_SMEM_LIMIT - sx_bytes - sa_bytes - _EPI_BYTES) // stage_bytes)
-    kv_bytes = 2 * _TMAX * (dh + 8) * 2
-    kv_bufs = 2 if sx_bytes + 2 * kv_bytes <= _SMEM_LIMIT else 1
-    smem = max(sx_bytes + sa_bytes + stages * stage_bytes + _EPI_BYTES,
-               sx_bytes + kv_bufs * kv_bytes)
-    thin_bytes = 4 * (_THIN_PART + 11 * e + n_head + n_head * _TMAX)
-    if stages < 3 or smem > _SMEM_LIMIT or thin_bytes > stages * stage_bytes:
-        raise ValueError(f"n_embd={e}, {n_head} heads: {smem} bytes of shared memory with "
-                         f"{stages} weight stages, over a block's {_SMEM_LIMIT}")
-    return {"resident": int(resident), "stages": stages, "kv_bufs": kv_bufs,
-            "smem_bytes": smem, "ws_elems": _TMAX * 3 * e + (0 if resident else 2 * _HALF * e)}
-
-
 def e2e_unfit(e: int, n_head: int, t: int = _TMAX) -> str | None:
-    """Why the e2e kernel cannot take this shape, or None where it can:
-    T from 1 to 256, head dims multiples of 16 from 16 to 128, n_embd up to
-    256, its shared memory within a block's."""
+    """Why the e2e kernel cannot take this shape, or None where it can: the
+    shape rules of ``Fwd``'s static_asserts in csrc/fused_gpt.cu (T from 1
+    to 256, head dims multiples of 16 from 16 to 128, n_embd up to 256).
+    Its shared-memory budget holds at every width these admit; the
+    static_asserts own it."""
     if not 1 <= t <= _TMAX:
         return f"T={t} is outside 1..{_TMAX}"
-    try:
-        e2e_layout(e, n_head)
-    except ValueError as err:
-        return str(err)
+    if n_head <= 0 or e % n_head:
+        return f"n_embd={e} is not a multiple of {n_head} heads"
+    dh = e // n_head
+    if dh % 16 or not 16 <= dh <= 128:
+        return f"head dim {dh} is not a multiple of 16 from 16 to 128"
+    if e > _MAX_E2E_EMBD:
+        return (f"n_embd={e} > {_MAX_E2E_EMBD}: the fc2 sums of 16 rows take "
+                "n_embd / 2 registers a lane")
     return None
 
 

@@ -3,8 +3,8 @@ ids, without a CUDA toolkit:
 
 - ``fused_gpt.cuda_plan`` picks the JAX package's route and the kernel that
   runs it on CUDA for (160, 5), (256, 8), (768, 12), (192, 6), (384, 6),
-  (512, 8), (320, 10), (160, 10), (256, 16), (384, 4) and (512, 32), and
-  ``e2e_layout`` mirrors the e2e kernel's budgets, without building
+  (512, 8), (320, 10), (160, 10), (256, 16), (144, 9), (384, 4) and (512, 32),
+  and ``e2e_unfit`` holds the e2e kernel's shape rules, without building
   anything; a shape neither kernel can hold (n_embd not a multiple of 32, a
   head dim not a multiple of 16, too many heads for the thin attention's
   shared memory, T outside 1..256, or T != 256 past the e2e kernel's width)
@@ -53,6 +53,8 @@ from mapf_gpt_tpu_torch.ops.fused_blocks import blocks_reference, ln_f32
     # head dim 16, 10 and 16 heads: the e2e kernel takes any heads and head dims 16-128
     (160, 10, 4, "e2e", "fused_gpt", {"FUSED_GPT_E": 160, "FUSED_GPT_H": 10}),
     (256, 16, 4, "e2e", "fused_gpt", {"FUSED_GPT_E": 256, "FUSED_GPT_H": 16}),
+    # n_embd not a multiple of 32 (a K slab of 16 rows, a q|k|v tile of 48 columns)
+    (144, 9, 3, "e2e", "fused_gpt", {"FUSED_GPT_E": 144, "FUSED_GPT_H": 9}),
     (384, 4, 4, "e2e", "fused_blocks", {"FUSED_BLOCKS_E": 384, "FUSED_BLOCKS_DH": 96}),
     (160, 5, 90, "chunked", "fused_blocks", {"FUSED_BLOCKS_E": 160, "FUSED_BLOCKS_DH": 32}),
     # the chunked route with head dim 16 stays on the layer-stack kernel
@@ -69,24 +71,18 @@ def test_cuda_plan_without_building(monkeypatch, e, h, layers, route, kernel, de
 
 
 def test_e2e_chunk_reproduces_the_published_builds():
-    """e2e_layout mirrors Fwd in csrc/fused_gpt.cu: the source's own
-    instantiations, Fwd<160, 5> and Fwd<256, 8>, and the budgets its header
-    note states (the 2M's stream stays in shared memory, the 6M's parks a
-    half), and the widths it refuses."""
+    """The source's own instantiations, Fwd<160, 5> and Fwd<256, 8>, and
+    e2e_unfit's shape rules, those of Fwd's static_asserts."""
     src = (_build.CSRC / "fused_gpt.cu").read_text()
     assert "Fwd<160, 5>;" in src and "Fwd<256, 8>;" in src
-    assert fused_gpt.e2e_layout(160, 5) == {"resident": 1, "stages": 4, "kv_bufs": 2,
-                                            "smem_bytes": 229376, "ws_elems": 256 * 480}
-    assert fused_gpt.e2e_layout(256, 8) == {"resident": 0, "stages": 4, "kv_bufs": 2,
-                                            "smem_bytes": 225280,
-                                            "ws_elems": 256 * 768 + 2 * 128 * 256}
-    for size in ("229,376", "225,280", "512 KiB"):
-        assert size in src
-    # 12 heads, head dims 64, 16 and 128: taken; n_embd past 256, head dims 8 and 40: not
-    for e, h in ((192, 12), (256, 4), (160, 10), (256, 2)):
-        assert fused_gpt.e2e_unfit(e, h) is None
-    for e, h in ((384, 12), (320, 10), (192, 24), (200, 5)):
-        assert fused_gpt.e2e_unfit(e, h) is not None
+    # 12 heads, head dims 64, 16 and 128, n_embd not a multiple of 32, T = 1: taken
+    for e, h, t in ((192, 12, 256), (256, 4, 256), (160, 10, 200), (256, 2, 130),
+                    (144, 9, 200), (160, 5, 1)):
+        assert fused_gpt.e2e_unfit(e, h, t) is None
+    # n_embd past 256, head dims 8 and 40, T outside 1..256: not
+    for e, h, t in ((384, 12, 256), (320, 10, 256), (192, 24, 256), (200, 5, 256),
+                    (160, 5, 0), (160, 5, 257)):
+        assert fused_gpt.e2e_unfit(e, h, t) is not None
 
 
 @pytest.mark.parametrize("e,h,t,match", [
