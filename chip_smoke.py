@@ -12,8 +12,17 @@ after phase 2, so that a faulty attention kernel fails within seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
 2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, and the
-   widths of phase 8, one nvcc each, all started together; build seconds
-   and ptxas' register report.
+   widths of phases 7 and 8, one nvcc each, all started together; build
+   seconds and ptxas' register report.  Then (phase 2b) the layer
+   kernels' shared GEMM (``csrc/gemm_tile.cuh``, through
+   ``fused_gpt_train.gemm_tile``) against an fp32 product of the same bf16
+   operands in all four orientations (A K- or MN-major, B MN- or K-major),
+   at shapes with ragged M, N and K tails, bf16 out within 0.01 * max|ref|
+   + 1e-3 and split fp32 partials within 1e-4 * max|ref| + 1e-3; and timed
+   at the largest product of each layer kernel (the 85M's fc, [65536, 768]
+   x [768, 3072], and the 6M backward's dh Wfc^T, [65536, 1024] x [1024,
+   256]) beside one ``torch.matmul`` of the same operands, a cuBLAS
+   yardstick that nothing of the port calls.
 3. 2M kernel vs plain version: the trained 2M
    (``checkpoints/MAPF-GPT-2M-r4.pt``) at full width on 512 contexts,
    random tokens from ``--seed`` and the real tokens of a reset batch.
@@ -45,9 +54,15 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    (a group of 256 and one of 44, whose thinned layer fills part of a row
    tile), same tolerances; one
    3-layer chunk of the layer-stack kernel alone against
-   ``blocks_reference`` (stream within atol 0.02 * max|ref|); a 4 x 32 x 32
+   ``blocks_reference`` (stream within atol 0.02 * max|ref|); the
+   chunked route at T = 200, and the layer-stack kernel alone at the
+   shapes its lifted limits admit (``BLOCK_SHAPES``: the 85M's width at T
+   = 200, head dims 8 and 24, n_embd 336 with 21 heads, and 256 heads of
+   head dim 8 at n_embd 2048, whose thin attention was past the shared
+   memory before), both ways of ``last_only``; a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
-   counter 0; timing at 2048 contexts (the JAX harness's 85M cap).
+   counter 0; timing at 2048 contexts (the JAX harness's 85M cap) and the
+   stack's device time by kernel (``torch.profiler``).
 8. Widths built on demand: eight widths no published model has, random
    weights from ``init_params``, 64 contexts each against
    ``fused_logits_reference`` with phase 3's tolerances: E=192/6 heads/4
@@ -69,8 +84,10 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    gradients each within 0.08 * max|ref| + 1e-4, the tolerances of
    ``tests/test_fused_gpt.py`` and ``tests/test_fused_gpt_train.py``), and
    the 85M's width (E=768, 12 heads), head dim 16 (E=256, 16 heads), head
-   dim 96 (E=384, 4 heads) and T=200 (the 6M's width; T needs no longer
-   be a multiple of 64) on a 2-layer forward and a 1-layer backward chunk
+   dim 96 (E=384, 4 heads), T=200 (the 6M's width), head dim 8 with
+   n_embd 200 at T = 300 (heads padded to 16 columns, T past 256), and
+   head dim 128 at T = 300 (the attention backward's key and query windows
+   reloaded in turn) on a 2-layer forward and a 1-layer backward chunk
    each; a second backward launch must equal the first bit for bit.
 10. The trainer through its entry point: ``train.loop.train`` with
    ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
@@ -85,7 +102,8 @@ after phase 2, so that a faulty attention kernel fails within seconds:
 11. Training timing: one forward + backward of the 6M at the reference
    micro-batch of 2048 contexts, the kernels alone and the whole
    ``fused_loss_fn`` + backward, beside the plain versions and the bound;
-   the trainer's it/s and MFU.
+   the backward's device time by kernel (``torch.profiler``); the
+   trainer's it/s and MFU.
 12. The attention kernel (``csrc/attention.cu``, for ``attn_impl="pallas"``)
    against its plain version ``attention_einsum``, fp32 and bf16, at
    [B, H, T, D] = [64, 5, 256, 32] (2M-like), [32, 8, 256, 32] (6M-like),
@@ -183,7 +201,22 @@ N_WIDTHS_TIME = 2048             # contexts of each width's timing
 # group offsets, the gradients summed across groups and a partial group
 N_TRAIN_CMP = {"2M": 512, "6M": 300, "85M": 64}
 TRAIN_WIDTHS = {"85M width": (768, 12, 256), "head dim 16": (256, 16, 256),   # (E, heads, T)
-                "head dim 96": (384, 4, 256), "T 200": (256, 8, 200)}
+                "head dim 96": (384, 4, 256), "T 200": (256, 8, 200),
+                "head dim 8, n_embd 200, T 300": (200, 25, 300),
+                "head dim 128, T 300": (256, 2, 300)}
+# the layer-stack kernel past its old limits, (n_embd, heads, layers, T): the 85M's
+# width at T = 200, head dims 8 and 24 (padded to 16 and 32 columns), n_embd 336 with
+# 21 heads, and 256 heads of head dim 8, whose thin attention's H x T scores were
+# past a block's shared memory
+BLOCK_SHAPES = ((768, 12, 2, 200), (96, 12, 2, 200), (96, 4, 2, 200), (336, 21, 2, 200),
+                (2048, 256, 1, 256))
+N_BLOCK_SHAPES = 40              # contexts of each shape's compare (4 at n_embd 2048)
+# the shared GEMM's compares, (M, N, K): ragged tails on every side, N of one and
+# of several output tiles, K of one k-tile and of many
+GEMM_SHAPES = ((200, 136, 72), (256, 256, 128), (1000, 600, 304), (64, 8, 16),
+               (136, 264, 520), (520, 776, 1032))
+GEMM_TIME = {"85M fc": (65536, 3072, 768, False, False),   # (M, N, K, A MN-major, B K-major)
+             "6M backward dh Wfc^T": (65536, 256, 1024, False, True)}
 N_TRAIN_TIME = 2048              # the 6M's reference micro-batch
 TRAIN_PLAIN_CHUNK = 256          # contexts per plain training-version call
 TRAIN_ITERS, TRAIN_BATCH, TRAIN_ACCUM = 20, 256, 2
@@ -451,6 +484,80 @@ def e2e_shapes_phase(seed: int, dev) -> float:
     return err
 
 
+def block_shapes_phase(seed: int, dev) -> float:
+    """The layer-stack kernel alone at BLOCK_SHAPES, random weights from
+    init_params, both ways of last_only, against blocks_reference (stream
+    within atol 0.02 * max|ref|).  Returns the largest max |err|."""
+    err = 0.0
+    for e, h, layers, t in BLOCK_SHAPES:
+        cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
+        model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e + h)),
+                           device=dev)
+        w = fused_gpt.stack_weights(model)
+        n = 4 if e >= 2048 else N_BLOCK_SHAPES
+        tokens = random_tokens(seed + e + t, n, cfg, dev)[:, :t]
+        x = (w.wte32[tokens.long()] + w.wpe32[:t]).to(torch.bfloat16)
+        for last_only in (False, True):
+            got = fused_blocks.fused_blocks(x, w.stacks(), last_only)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"blocks E={e} H={h} (head dim {e // h}) L={layers} T={t} last_only={last_only}, "
+                "stream", got, fused_blocks.blocks_reference(x, w.stacks(), last_only),
+                floor=0.0, argmax=False))
+    return err
+
+
+def log_split(label: str, fn) -> list:
+    """fn()'s device time by kernel (torch.profiler, one warm call), logged."""
+    split = profiling.kernel_times(fn, reps=1)
+    traced = sum(r[0] for r in split)
+    log(f"[timing] {label} by kernel ({traced:.3f} ms traced):")
+    for ms_k, calls, name in split[:12]:
+        log(f"[timing]   {ms_k:10.3f} ms {100 * ms_k / traced:5.1f} % {calls:6.1f} launches  "
+            f"{name[:100]}")
+    return split
+
+
+def gemm_phase(seed: int, dev) -> dict:
+    """The shared GEMM against an fp32 product of the same bf16 operands in
+    every orientation at GEMM_SHAPES, then timed at GEMM_TIME beside one
+    torch.matmul (cuBLAS, a yardstick only).  Returns the timings."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for m, n, k in GEMM_SHAPES:
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        ref = a.float() @ b.float()
+        scale = ref.abs().max().item()
+        for a_mn in (False, True):
+            for b_k in (False, True):
+                args = (a.t().contiguous() if a_mn else a, b.t().contiguous() if b_k else b,
+                        a_mn, b_k)
+                for splits in (0, 3):
+                    got = fgt.gemm_tile(*args, splits=splits)
+                    got = got.sum(0) if splits else got.float()
+                    tol = (1e-4 if splits else 0.01) * scale + 1e-3
+                    err = (got - ref).abs().max().item()
+                    if not err <= tol:
+                        raise RuntimeError(f"gemm M={m} N={n} K={k} A {'MN' if a_mn else 'K'}-"
+                                           f"major, B {'K' if b_k else 'MN'}-major, splits "
+                                           f"{splits}: max|err| {err:.5f} > tol {tol:.5f}")
+    log(f"[compare] gemm_tile: {len(GEMM_SHAPES)} shapes x 4 orientations x (bf16, 3 fp32 "
+        "splits) within tolerance")
+    rows = {}
+    for label, (m, n, k, a_mn, b_k) in GEMM_TIME.items():
+        a = torch.randn((k, m) if a_mn else (m, k), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((n, k) if b_k else (k, n), generator=gen, device=dev).to(torch.bfloat16)
+        ta, tb = (a.t() if a_mn else a), (b.t() if b_k else b)
+        ms = cuda_ms(lambda: fgt.gemm_tile(a, b, a_mn, b_k), reps=20)
+        lib_ms = cuda_ms(lambda: torch.matmul(ta, tb), reps=20)
+        tflops = 2 * m * n * k / 1e9
+        log(f"[timing] gemm {label} [{m}, {k}] x [{k}, {n}]: gemm_tile {ms:.3f} ms "
+            f"({tflops / ms:.1f} TFLOP/s), torch.matmul {lib_ms:.3f} ms ({tflops / lib_ms:.1f} "
+            f"TFLOP/s), bound {bound(2 * m * n * k, 0, 2 * (m * k + k * n + m * n))[0]:.3f} ms")
+        rows[label] = {"shape": [m, n, k], "gemm_ms": ms, "cublas_ms": lib_ms}
+    return rows
+
+
 def blocks_model(seed: int, dev) -> dict:
     """The 85M on the chunked route: compare, the layer-stack kernel alone,
     rollout and timing."""
@@ -473,6 +580,8 @@ def blocks_model(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     ref = fused_blocks.blocks_reference(x, chunk, last_only=False)
     check_close("85M blocks 3-layer chunk, stream", got, ref, floor=0.0, argmax=False)
+    max_err = max(max_err, compare("85M random tokens, T=200", w, odd[:, :200].contiguous()),
+                  block_shapes_phase(seed, dev))
 
     # one layer-stack launch per forward: the chunked route runs all 12 layers in one call
     dt, (_, launches, _) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
@@ -491,12 +600,14 @@ def blocks_model(seed: int, dev) -> dict:
     log(f"[timing] 85M N={N_TIME_85M}: kernel {ms:.3f} ms (whole forward {fwd_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f} % of bound")
+    log_split(f"85M N={N_TIME_85M} layer stack",
+              lambda: fused_blocks.fused_blocks(x, stacks, last_only=True))
     return {"name": "fused_blocks", "model": "85M", "route": "cuda",
             "source": "mapf_gpt_tpu_torch/csrc/fused_blocks.cu",
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:167",
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "n_contexts": N_TIME_85M}
+            "n_contexts": N_TIME_85M, "at_t_200_and_block_shapes": True}
 
 
 def widths_phase(seed: int, dev) -> None:
@@ -600,15 +711,17 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
                                        xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
             bwd_err = max(bwd_err, err)
 
-    # other widths (the 85M's, head dims 16 and 96, T=200): a 2-layer forward
-    # chunk, a 1-layer backward chunk
+    # other widths (the 85M's, head dims 8, 16, 96 and 128, n_embd 200, T=200 and
+    # 300): a 2-layer forward chunk, a 1-layer backward chunk
     _, _, real = reset_batch(seed, B_85M, STEPS_85M, dev)
     for label, (e, h, t) in TRAIN_WIDTHS.items():
         cfg = GPTConfig(n_layer=2, n_head=h, n_embd=e, block_size=t)
         gen = torch.Generator().manual_seed(seed if label == "85M width" else seed + e + h + t)
         model = load_model(cfg, init_params(cfg, gen), device=dev)
         stacks = train_stacks(model)
-        x = embed(model, real[:N_TRAIN_CMP["85M"], :t])
+        n = N_TRAIN_CMP["85M"]
+        tokens = real[:n, :t] if t <= real.shape[1] else random_tokens(seed + t, n, cfg, dev)
+        x = embed(model, tokens)
         out, xsave = fgt.train_forward(x, stacks, last_only=False)
         torch.cuda.synchronize()
         ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
@@ -761,12 +874,7 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
     log("[timing] backward workspace for groups of 256 contexts: " + ", ".join(
         f"{label} {lib.fused_train_workspace(1, fgt.GROUP, 256, e_, h_)} bytes"
         for label, (e_, h_) in (("6M", (256, 8)), ("85M", (768, 12)))))
-    split = profiling.kernel_times(backward, reps=1)   # warmed up by the timing above
-    traced = sum(r[0] for r in split)
-    log(f"[timing] 6M train N={N_TRAIN_TIME} backward by kernel ({traced:.3f} ms traced):")
-    for ms_k, calls, name in split[:12]:
-        log(f"[timing]   {ms_k:10.3f} ms {100 * ms_k / traced:5.1f} % {calls:6.1f} launches  "
-            f"{name[:100]}")
+    split = log_split(f"6M train N={N_TRAIN_TIME} backward", backward)   # warmed up above
     whole_ms = cuda_ms(whole, reps=3)
     plain_fwd_ms = cuda_ms(plain_forward, reps=1)
     plain_bwd_ms = cuda_ms(plain_backward, reps=1)
@@ -951,6 +1059,7 @@ def main() -> int:
         jobs.append((kernel, fused_gpt.e2e_defines(e, h) if kernel == "fused_gpt"
                      else fused_blocks.kernel_defines(e, h)))
     jobs += [("fused_gpt", fused_gpt.e2e_defines(e, h)) for e, h, *_ in E2E_SHAPES]
+    jobs += [("fused_blocks", fused_blocks.kernel_defines(e, h)) for e, h, *_ in BLOCK_SHAPES]
     jobs = list({_build.library_path(*job): job for job in jobs}.values())   # each library once
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -964,8 +1073,9 @@ def main() -> int:
     log(f"[build] fused_gpt kernel config {fused_gpt.kernel_config()}")
     log(f"[build] fused_blocks kernel config {fused_blocks.kernel_config()}")
 
-    # 12. the attention kernel against its plain version, first
+    # 12. the attention kernel against its plain version, first; 2b. the layer kernels' GEMM
     att_err = attention_phase(args.seed, dev)
+    gemm_rows = gemm_phase(args.seed, dev)
 
     # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
@@ -977,7 +1087,7 @@ def main() -> int:
     e2e_shapes_err = e2e_shapes_phase(args.seed, dev)
     for entry in entries:
         entry["max_abs_err_other_shapes"] = e2e_shapes_err
-    entries.append(blocks_model(args.seed, dev))
+    entries.append({**blocks_model(args.seed, dev), "gemm_yardstick": gemm_rows["85M fc"]})
     log(f"[done] inference phases {time.perf_counter() - t_start:.1f} s")
 
     # 8. widths built on demand; 9. training kernels; 10. the trainer; 11. timing
@@ -986,6 +1096,7 @@ def main() -> int:
     trainer = trainer_phase(model_6m, args.seed, dev)
     entries += train_timing(model_6m.train().requires_grad_(), args.seed, dev, fwd_err, bwd_err,
                             trainer)
+    entries[-1]["gemm_yardstick"] = gemm_rows["6M backward dh Wfc^T"]
     log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
 
     # 13. the module route with attn_impl="pallas"; 14. the bias=True rollout; 15. timing

@@ -1,11 +1,11 @@
-// GPT layer stack for Hopper (sm_90a): bf16 x [N, 256, E] through a chunk of
-// layers -> bf16 [N, 256, E], or [N, 1, E] (the last position) with the
-// chunk's final layer thinned.  Built with no defines for the 85M's width
-// (E=768, head dim 64, 12 heads); -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh>
-// build another width (E a multiple of 32, head dim a multiple of 16 up to
-// 128, the thin attention's scores within a block's shared memory; the
-// static asserts below, which ops/fused_blocks.py checks before it starts
-// nvcc).
+// GPT layer stack for Hopper (sm_90a): bf16 x [N, T, E] through a chunk of
+// layers -> bf16 [N, T, E], or [N, 1, E] (the last position) with the
+// chunk's final layer thinned.  T is a runtime argument, any T >= 1.  Built
+// with no defines for the 85M's width (E=768, head dim 64, 12 heads);
+// -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh> build another width: E a
+// multiple of 8 (TMA's 16-byte row strides), any head dim from 1 to 128
+// (the static asserts below, which ops/fused_blocks.py checks before it
+// starts nvcc).
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/fused_gpt.py::_block_kernel and
 // computes what it computes, per layer:
@@ -15,19 +15,26 @@
 //             att = bf16((e @ v) * (1 / sum e))   (normalised after P@V)
 //   x = bf16(x + bf16(att @ Wproj))
 //   x = bf16(x + bf16(gelu_tanh(bf16(bf16(LN(x) * g2) @ Wfc)) @ Wfc2))
-// and, when last_only, the chunk's final layer thinned: K/V over all 256
-// positions, but Q, attention, projection and MLP for position 255 only.
+// and, when last_only, the chunk's final layer thinned: K/V over all T
+// positions, but Q, attention, projection and MLP for position T-1 only.
 // bf16 between ops, fp32 accumulation; the plain PyTorch version of the same
 // arithmetic is mapf_gpt_tpu_torch/ops/fused_blocks.py::blocks_reference.
+//
+// Heads are laid out padded: each head's q, k, v and attention columns
+// take DP = DH rounded up to 16 (the attention tiles' depth), so Wqkv is
+// [E, 3 H DP] and Wproj [H DP, E], their extra columns and rows zero (the
+// wrapper pads them; none at the repo's models, whose head dims are
+// multiples of 16).  Zero columns change neither the scores nor P@V.
 //
 // Bound on an H100 SXM for the 85M's whole stack (12 layers, the last
 // thinned) at N = 2048 contexts (the JAX harness's 85M context cap):
 // 87.4 TFLOP of bf16 products (11 full layers at 3.825 GFLOP a context, the
 // thinned twelfth at 0.617 GFLOP) -> 88 ms at 989 TFLOP/s, against 0.97 GB
 // (x in, the last positions out, 170 MB of weights) -> 0.29 ms at 3.35 TB/s.
-// It is bound by operations.  The bound counts x once in and once out: this
-// design sends x to device memory and back between layers, but the function
-// does not need that, so those bytes are not in the bound.
+// It is bound by operations, 95 % of them the GEMMs (24 T E^2 against
+// 4 T^2 E a layer).  The bound counts x once in and once out: this design
+// sends x to device memory and back between layers, but the function does
+// not need that, so those bytes are not in the bound.
 //
 // Why not the e2e kernel's plan: one context's residual stream is 384 KiB
 // (over a block's 227 KB of shared memory) and one layer's weights are
@@ -35,39 +42,37 @@
 // So the layer runs as a few wide kernels over a group of up to 256
 // contexts (65,536 rows), one layer after another, the group's
 // intermediates in a workspace in device memory:
-//   * gemm_kernel: C = epilogue(A @ W) on the tensor cores, WMMA bf16
-//     16x16x16 tiles (mma.sync), a 128 x 128 block tile of 8 warps (64 x 32
-//     each), the K loop 32 deep with A and B double-buffered in shared
-//     memory (B by cp.async), columns past N zero in the B tile and not
-//     stored, so N needs only be a multiple of a warp's 32 columns (a warp
-//     whose columns all lie past N skips its products).  Its prologue can
-//     compute the rows' LayerNorm statistics and apply LN * g to the A
-//     tiles as they are staged (LN1 -> QKV, LN2 -> fc); its epilogue rounds
-//     to bf16 and applies tanh GELU (fc) or the residual add (projection,
-//     fc2);
-//   * attention_kernel: one (context, head, 128-row block) a CTA, 16 query
-//     rows a warp, the scores of 128 keys at a time, so the 256x256 score
-//     matrix is never stored;
+//   * ln_kernel: xn = bf16(LN(x) * g), a warp a row, its own pass (TMA
+//     writes the GEMM's A tiles straight to shared memory, so LN is not
+//     applied as they are staged);
+//   * the GEMMs (LN1 -> QKV, projection, LN2 -> fc, fc2): gemm_tile.cuh,
+//     TMA into a ring of 128-byte-swizzled tiles, wgmma.mma_async from two
+//     consumer warpgroups, the epilogue on the accumulators: bf16 round,
+//     tanh GELU (fc), the residual add (projection, fc2);
+//   * blocks_attention: one (64-row query tile, head, context) a CTA, 16
+//     query rows a warp, the scores of 64 keys at a time in mma.sync
+//     registers (csrc/attn_tile.cuh), K and V staged in windows of 128 keys
+//     with zero rows past T; keys at or past T get e = 0, rows past T are
+//     not stored;
 //   * thin_attention_kernel: the last position's attention, one context a
-//     CTA, in fp32 on the CUDA cores, its H x 256 scores in dynamic shared
-//     memory.
-// A full layer is 5 kernel launches per group (LN1+QKV, attention,
-// projection, LN2+fc, fc2), the thinned layer 6 (LN1+K|V over all rows,
-// LN1+Q of the last rows, attention, projection, LN2+fc, fc2).  One call of
+//     CTA, a warp a head at a time in fp32 on the CUDA cores, the scores of
+//     32 keys at a time, so its shared memory does not grow with H or T.
+// A full layer is 7 kernel launches per group (LN1, QKV, attention,
+// projection, LN2, fc, fc2), the thinned layer 9.  One call of
 // fused_blocks_forward runs a whole chunk of layers; the port's chunked
-// route makes one such call per forward.  The group's q|k|v (302 MB) and
-// MLP hidden (403 MB) make a round trip through device memory; this first
-// version leaves wgmma, TMA and a fused MLP to later work.
+// route makes one such call per forward.  The group's q|k|v (302 MB at the
+// 85M) and MLP hidden (403 MB) make a round trip through device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libfused_blocks.so fused_blocks.cu   (ops/_build.py)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "attn_tile.cuh"
+#include "gemm_tile.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -79,40 +84,22 @@ namespace {
 #define FUSED_BLOCKS_DH 64       // its head dim
 #endif
 
-constexpr int T = 256;           // context length
 constexpr int E = FUSED_BLOCKS_E;
 constexpr int DH = FUSED_BLOCKS_DH;
-constexpr int H = E / DH;        // heads (12 for the 85M)
-constexpr int E3 = 3 * E;        // q|k|v width
-constexpr int F = 4 * E;         // MLP hidden width
+constexpr int H = E / DH;              // heads (12 for the 85M)
+constexpr int DP = (DH + 15) / 16 * 16;  // a head's padded width
+constexpr int EA = H * DP;             // attention width (E when DH % 16 == 0)
+constexpr int E3 = 3 * EA;             // q|k|v width
+constexpr int F = 4 * E;               // MLP hidden width
 constexpr float EXP2_CLAMP = 100.f;
 constexpr float LN_EPS = 1e-5f;
-
-// gemm_kernel tiles
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WM = 64, WN = 32;           // warp tile; 2 x 4 warps
-constexpr int GEMM_THREADS = 256;
-constexpr int LDA_S = BK + 8;             // padded shared-memory rows
-constexpr int LDB_S = BN + 8;
-constexpr int SMEM_MAX = 232448;          // shared memory a block can have on sm_90
-static_assert(E % 32 == 0, "N: whole warp column tiles (WN); K: whole BK tiles; LN: 8-value chunks");
-static_assert(DH % 16 == 0 && DH <= 128, "head dim a multiple of 16 up to 128");
+static_assert(E % 8 == 0, "n_embd a multiple of 8: TMA's 16-byte row strides, LN's 8-value chunks");
+static_assert(DH >= 1 && DH <= 128, "head dim from 1 to 128");
 static_assert(E % DH == 0, "whole heads");
-constexpr int LN_J = (E + 255) / 256;    // 8-value chunks a lane holds in the LN prologue
-constexpr int THIN_SMEM = (E + H * T + H) * 4;
-static_assert(THIN_SMEM <= SMEM_MAX, "thin attention: dynamic shared memory");
+constexpr int LN_J = (E / 8 + 31) / 32;  // 8-value chunks a lane holds in ln_kernel
 
-// attention tiles
-constexpr int ATT_WARPS = 8;
-constexpr int ATT_ROWS = ATT_WARPS * 16;  // query rows a CTA
-constexpr int CH = 128;                   // keys per chunk
-
-enum Epilogue { EPI_ROUND = 0, EPI_GELU = 1, EPI_RESID = 2 };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+constexpr int ATT_WINDOW = 128;        // keys a window of K and V holds
+constexpr int THIN_WARPS = 8;
 
 __device__ __forceinline__ float rbf(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -124,12 +111,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// tanh-approximated GELU, 0.5 x (1 + tanh(u)) written as x * sigmoid(2u) =
+// x / (1 + 2^(-2u log2(e))), as csrc/fused_gpt.cu computes it: one
+// ex2.approx and a fast division, within a few fp32 ulp of the accurate
+// tanh's.
 __device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+  const float k0 = 0.7978845608028654f;           // sqrt(2 / pi)
+  const float k1 = -2.f * 1.4426950408889634f;    // -2 log2(e)
+  const float u = k0 * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.f + attn::ex2(k1 * u));
 }
 
-__device__ __forceinline__ void unpack8(uint4 u, float v[8]) {
+__device__ __forceinline__ void load8(const bf16* src, float v[8]) {
+  uint4 u = *reinterpret_cast<const uint4*>(src);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -139,336 +133,237 @@ __device__ __forceinline__ void unpack8(uint4 u, float v[8]) {
   }
 }
 
-__device__ __forceinline__ uint4 pack8(const float v[8]) {
+__device__ __forceinline__ void store8(bf16* dst, const float v[8]) {
   uint4 u;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return u;
+  *reinterpret_cast<uint4*>(dst) = u;
 }
 
-// 8 consecutive bf16 <-> 8 floats (16-byte aligned addresses).
-__device__ __forceinline__ void load8(const bf16* src, float v[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(src), v);
+// y[r] = bf16(LN(x[r]) * g) for M rows [E] (rows ldx and E apart), a warp a
+// row: fp32, two passes over the row held in registers.
+__global__ void __launch_bounds__(256)
+ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g,
+          bf16* __restrict__ y, int M) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * ldx;
+  float v[LN_J][8];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < LN_J; ++j) {
+    const int ci = lane + 32 * j;
+    if (ci < E / 8) {
+      load8(xr + ci * 8, v[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += v[j][i];
+  }
+  const float mu = warp_sum(s) * (1.f / E);
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < LN_J; ++j) {
+    if (lane + 32 * j >= E / 8) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float d = v[j][i] - mu;
+      q += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(q) * (1.f / E) + LN_EPS);
+  bf16* yr = y + (size_t)row * E;
+#pragma unroll
+  for (int j = 0; j < LN_J; ++j) {
+    const int ci = lane + 32 * j;
+    if (ci >= E / 8) continue;
+    float o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = (v[j][i] - mu) * rs * g[ci * 8 + i];
+    store8(yr + ci * 8, o);
+  }
 }
 
-__device__ __forceinline__ void store8(bf16* dst, const float v[8]) {
-  *reinterpret_cast<uint4*>(dst) = pack8(v);
-}
-
-// A warp's 16x16 accumulator tile -> 8 values per lane: lane holds row
-// lane/2, columns (lane%2)*8 .. +7.
-__device__ __forceinline__ void frag_to_lane8(const FragC& c, float* stage, float v[8]) {
-  wmma::store_matrix_sync(stage, c, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const float4* p = reinterpret_cast<const float4*>(stage + lane * 8);
-  float4 a = p[0], b = p[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  __syncwarp();
-}
-
-__device__ __forceinline__ int lane_row() { return (threadIdx.x & 31) >> 1; }
-__device__ __forceinline__ int lane_col() { return (threadIdx.x & 1) * 8; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-struct GemmSmem {
-  bf16 a[2][BM * LDA_S];
-  bf16 b[2][BK * LDB_S];
-  float stage[GEMM_THREADS / 32][16 * 16];
-  float mu[BM];
-  float rs[BM];
+// GEMM epilogues (gemm_tile.cuh calls them on adjacent column pairs; each
+// output is bf16, staged through shared memory and stored by TMA):
+// C = bf16(acc)
+struct EpiRound {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ float2 value(int, int, float v0, float v1, Side) const { return {v0, v1}; }
 };
 
-// C[M, N] = epilogue(A'[M, K] @ W[K, N]), rows of A, C and R lda, ldc, ldr
-// elements apart, W's ldw.  A' = A, or bf16(LN(A) * g) when LN (then
-// K == E).  Epilogues: EPI_ROUND  C = bf16(acc)
-//                      EPI_GELU   C = bf16(gelu_tanh(bf16(acc)))
-//                      EPI_RESID  C = bf16(R + bf16(acc))  (R may be C)
-// N is a multiple of 32 and K of BK; rows past M and columns past N are
-// skipped.
-// Two blocks an SM: at most 128 registers a thread (the masking of N costs
-// two more otherwise, and the third would halve the blocks an SM holds).
-template <bool LN, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const bf16* __restrict__ A, int lda, const float* __restrict__ g,
-            const bf16* __restrict__ W, int ldw, const bf16* R, int ldr, bf16* C, int ldc,
-            int M, int N, int K) {
-  __shared__ __align__(128) GemmSmem sm;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bool live = n0 + wn * WN < N;   // the warp has columns to compute
+// C = bf16(gelu_tanh(bf16(acc)))
+struct EpiGelu {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ float2 value(int, int, float v0, float v1, Side) const {
+    return {gelu_tanh(rbf(v0)), gelu_tanh(rbf(v1))};
+  }
+};
 
-  if (LN) {
-    // the rows' mean and 1/std: two-pass, fp32, a warp per row
-    for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
-      float mu = 0.f, rs = 0.f;
-      if (m0 + r < M) {
-        const bf16* row = A + (size_t)(m0 + r) * lda;
-        float v[LN_J][8];
+// C = bf16(R + bf16(acc)); R may be C
+struct EpiResid {
+  using Side = __nv_bfloat162;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  const bf16* r;
+  long long ldr;
+  __device__ Side load(int row, int col) const {
+    return *reinterpret_cast<const __nv_bfloat162*>(r + (size_t)row * ldr + col);
+  }
+  __device__ float2 value(int, int, float v0, float v1, Side s) const {
+    const float2 x = __bfloat1622float2(s);
+    return {x.x + rbf(v0), x.y + rbf(v1)};
+  }
+};
+
+// Attention of one (64-row query tile, head, context) a CTA, 16 query rows
+// a warp: att[c, rows, h*DP ..] from qkv [n, T, 3 EA].  K and V of the head
+// in windows of W keys (zero rows past T), e of 64 keys at a time in
+// registers, repacked as the A operand of P V.
+template <int D>
+__global__ void __launch_bounds__(attn::WARPS * 32)
+blocks_attention(const bf16* __restrict__ qkv, bf16* __restrict__ att, int T, int W) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = D + 8, NC = attn::KC / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
+  const int h = blockIdx.y, ctx = blockIdx.z;
+  const int r0 = blockIdx.x * attn::TILE + warp * 16;
+  const bool active = r0 < T;
+  const bf16* q = qkv + (size_t)ctx * T * E3 + h * D;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)W * LD;
+  bf16* stage = vs + (size_t)W * LD + warp * 16 * LD;
+
+  unsigned qa[D / 16][4];
+  if (active) attn::load_q<D>(qa, stage, q, E3, r0, T);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float rs[2] = {0.f, 0.f};   // this lane's part of its rows' sums of e
+  for (int w0 = 0; w0 < T; w0 += W) {
+    __syncthreads();   // the previous window's readers are done
+    attn::stage_rows_async<D>(ks, q + EA, E3, w0, W, T, threadIdx.x, blockDim.x);
+    attn::stage_rows_async<D>(vs, q + 2 * EA, E3, w0, W, T, threadIdx.x, blockDim.x);
+    attn::cp_async_commit();
+    attn::cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, attn::KC));
+    for (int c0 = 0; c0 < wend; c0 += attn::KC) {
+      float s[NC][4];
+      attn::scores<D, attn::KC / 16>(s, qa, ks + c0 * LD, LD);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float x = key_ok ? rbf(exp2f(fminf(s[j][e], EXP2_CLAMP))) : 0.f;
+          s[j][e] = x;
+          rs[e >> 1] += x;
+        }
+#pragma unroll
+      for (int kk = 0; kk < attn::KC / 16; ++kk) {
+        unsigned pa[4];
+        attn::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        attn::accumulate<D>(acc, pa, vs + (c0 + kk * 16) * LD, LD);
+      }
+    }
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / attn::quad_sum(rs[r]);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  attn::store_rows<D>(acc, stage, att + (size_t)ctx * T * EA + h * D, EA, r0, T);
+}
+
+// Attention of the last position, one context a CTA, a warp a head at a
+// time: att_last[c] from q_last [n, EA] and the K/V of qkv [n, T, 3 EA].  A
+// lane scores one key of each 32 (fp32 dot product over DP), then the warp
+// adds those 32 keys' e v to its DP columns.
+__global__ void __launch_bounds__(THIN_WARPS * 32)
+thin_attention_kernel(const bf16* __restrict__ q_last, const bf16* __restrict__ qkv,
+                      bf16* __restrict__ att_last, int T) {
+  constexpr int DJ = (DP + 31) / 32;
+  __shared__ float q_s[THIN_WARPS][DP];
+  __shared__ float p_s[THIN_WARPS][32];
+  const int c = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* kv = qkv + (size_t)c * T * E3;
+  for (int h = warp; h < H; h += THIN_WARPS) {
+    for (int d = lane; d < DP; d += 32)
+      q_s[warp][d] = __bfloat162float(q_last[(size_t)c * EA + h * DP + d]);
+    __syncwarp();
+    float acc[DJ], den = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int t = t0 + lane;
+      float p = 0.f;
+      if (t < T) {
+        const bf16* kr = kv + (size_t)t * E3 + EA + h * DP;
         float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < LN_J; ++j) {
-          const bool in = (lane + 32 * j) * 8 < E;
-          if (in) load8(row + (lane + 32 * j) * 8, v[j]);
+        for (int d = 0; d < DP; d += 8) {
+          float k8[8];
+          load8(kr + d, k8);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            if (!in) v[j][i] = 0.f;
-            s += v[j][i];
-          }
+          for (int i = 0; i < 8; ++i) s += q_s[warp][d + i] * k8[i];
         }
-        mu = warp_sum(s) * (1.f / E);
-        float q = 0.f;
-#pragma unroll
-        for (int j = 0; j < LN_J; ++j) {
-          if ((lane + 32 * j) * 8 >= E) continue;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float d = v[j][i] - mu;
-            q += d * d;
-          }
-        }
-        rs = rsqrtf(warp_sum(q) * (1.f / E) + LN_EPS);
+        p = rbf(exp2f(fminf(s, EXP2_CLAMP)));
       }
-      if (lane == 0) {
-        sm.mu[r] = mu;
-        sm.rs[r] = rs;
+      den += p;
+      p_s[warp][lane] = p;
+      __syncwarp();
+      const int nt = min(32, T - t0);
+      for (int i = 0; i < nt; ++i) {
+        const bf16* vr = kv + (size_t)(t0 + i) * E3 + 2 * EA + h * DP;
+        const float pi = p_s[warp][i];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j)
+          if (lane + 32 * j < DP) acc[j] += pi * __bfloat162float(vr[lane + 32 * j]);
       }
+      __syncwarp();
     }
-    __syncthreads();
-  }
-
-  // A tile [BM, BK]: 512 chunks of 8 bf16, two a thread, through registers
-  // (where LN is applied); B tile [BK, BN]: 512 chunks, two a thread, by cp.async
-  uint4 ra[2];
-  auto load_a = [&](int k0) {
+    const float inv = 1.f / warp_sum(den);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS, r = c >> 2, col = (c & 3) * 8;
-      ra[i] = m0 + r < M ? *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * lda + k0 + col)
-                         : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_a = [&](int s, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS, r = c >> 2, col = (c & 3) * 8;
-      uint4 u = ra[i];
-      if (LN) {
-        float v[8];
-        unpack8(u, v);
-        const float mu = sm.mu[r], rs = sm.rs[r];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = (v[e] - mu) * rs * g[k0 + col + e];
-        u = pack8(v);
-      }
-      *reinterpret_cast<uint4*>(&sm.a[s][r * LDA_S + col]) = u;
-    }
-  };
-  auto load_b = [&](int s, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS, kr = c >> 4, col = (c & 15) * 8;
-      bf16* dst = &sm.b[s][kr * LDB_S + col];
-      if (n0 + col < N)
-        cp_async16(dst, W + (size_t)(k0 + kr) * ldw + n0 + col);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    cp_async_commit();
-  };
-
-  FragC acc[WM / 16][WN / 16];
-#pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int ktiles = K / BK;
-  load_b(0, 0);
-  load_a(0);
-  store_a(0, 0);
-  cp_async_wait_all();
-  __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1, nxt = cur ^ 1;
-    const bool more = kt + 1 < ktiles;
-    if (more) {
-      load_b(nxt, (kt + 1) * BK);
-      load_a((kt + 1) * BK);
-    }
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA fa[WM / 16];
-        FragB fb[WN / 16];
-#pragma unroll
-        for (int i = 0; i < WM / 16; ++i)
-          wmma::load_matrix_sync(fa[i], &sm.a[cur][(wm * WM + i * 16) * LDA_S + kk * 16], LDA_S);
-#pragma unroll
-        for (int j = 0; j < WN / 16; ++j)
-          wmma::load_matrix_sync(fb[j], &sm.b[cur][kk * 16 * LDB_S + wn * WN + j * 16], LDB_S);
-#pragma unroll
-        for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-          for (int j = 0; j < WN / 16; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-    if (more) {
-      store_a(nxt, (kt + 1) * BK);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  float* stage = sm.stage[warp];
-#pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) {
-      float v[8];
-      frag_to_lane8(acc[i][j], stage, v);
-      const int row = m0 + wm * WM + i * 16 + lane_row();
-      const int col = n0 + wn * WN + j * 16 + lane_col();
-      if (row < M && col < N) {
-        if (EPI == EPI_GELU) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = gelu_tanh(rbf(v[e]));
-        } else if (EPI == EPI_RESID) {
-          float r[8];
-          load8(R + (size_t)row * ldr + col, r);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = r[e] + rbf(v[e]);
-        }
-        store8(C + (size_t)row * ldc + col, v);
-      }
-      __syncwarp();  // reconverge before the next tile's warp-wide store
-    }
-}
-
-// Attention of one (context, head, 128-row block) a CTA, 16 query rows a
-// warp: att[c, rows, h*DH ..] from qkv [n, T, 3E].
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ att) {
-  __shared__ __align__(128) float stage_s[ATT_WARPS][16 * 16];
-  __shared__ __align__(128) bf16 pbuf_s[ATT_WARPS][16 * CH];
-  const int warp = threadIdx.x >> 5;
-  constexpr int BLOCKS = T / ATT_ROWS;
-  const int c = blockIdx.x / (H * BLOCKS), h = (blockIdx.x / BLOCKS) % H;
-  const int r0 = (blockIdx.x % BLOCKS) * ATT_ROWS + warp * 16;
-  const bf16* q = qkv + (size_t)c * T * E3;
-  float* stage = stage_s[warp];
-  bf16* pbuf = pbuf_s[warp];
-
-  FragA qa[DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], q + r0 * E3 + h * DH + kk * 16, E3);
-  FragC o[DH / 16];
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  float rs = 0.f;  // sum of this lane's row, complete in both lanes of a pair
-  for (int c0 = 0; c0 < T; c0 += CH) {
-    for (int j = 0; j < CH / 16; ++j) {
-      const int key0 = c0 + j * 16;
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        FragBT kb;  // K^T tile: element (d, key) at K[key][d]
-        wmma::load_matrix_sync(kb, q + key0 * E3 + E + h * DH + kk * 16, E3);
-        wmma::mma_sync(s, qa[kk], kb, s);
-      }
-      float v[8];
-      frag_to_lane8(s, stage, v);
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = rbf(exp2f(fminf(v[i], EXP2_CLAMP)));
-        part += v[i];
-      }
-      rs += part + __shfl_xor_sync(0xffffffffu, part, 1);
-      store8(pbuf + lane_row() * CH + j * 16 + lane_col(), v);
-    }
-    __syncwarp();
-    for (int kk = 0; kk < CH / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, pbuf + kk * 16, CH);
-#pragma unroll
-      for (int n = 0; n < DH / 16; ++n) {
-        FragB vb;
-        wmma::load_matrix_sync(vb, q + (c0 + kk * 16) * E3 + 2 * E + h * DH + n * 16, E3);
-        wmma::mma_sync(o[n], pa, vb, o[n]);
-      }
-    }
+    for (int j = 0; j < DJ; ++j)
+      if (lane + 32 * j < DP)
+        att_last[(size_t)c * EA + h * DP + lane + 32 * j] = __float2bfloat16(acc[j] * inv);
     __syncwarp();
   }
-  const float inv = 1.f / rs;
-  bf16* out = att + ((size_t)c * T + r0 + lane_row()) * E + h * DH + lane_col();
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n) {
-    float v[8];
-    frag_to_lane8(o[n], stage, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] *= inv;
-    store8(out + n * 16, v);
-  }
 }
 
-// Attention of the last position, one context a CTA: att_last[c] from
-// q_last [n, E] and the K/V of qkv [n, T, 3E]; THIN_SMEM bytes of dynamic
-// shared memory.
-__global__ void __launch_bounds__(256)
-thin_attention_kernel(const bf16* __restrict__ q_last, const bf16* __restrict__ qkv,
-                      bf16* __restrict__ att_last) {
-  extern __shared__ __align__(16) float thin_s[];
-  float* q_s = thin_s;        // [E]
-  float* p_s = q_s + E;       // [H * T]
-  float* den_s = p_s + H * T; // [H]
-  const int c = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* kv = qkv + (size_t)c * T * E3;
-  for (int j = tid; j < E; j += blockDim.x) q_s[j] = __bfloat162float(q_last[(size_t)c * E + j]);
-  __syncthreads();
-  for (int i = tid; i < H * T; i += blockDim.x) {
-    const int h = i / T, t = i % T;
-    const bf16* kr = kv + t * E3 + E + h * DH;
-    float s = 0.f;
-    for (int d = 0; d < DH; ++d) s += q_s[h * DH + d] * __bfloat162float(kr[d]);
-    p_s[i] = rbf(exp2f(fminf(s, EXP2_CLAMP)));
-  }
-  __syncthreads();
-  for (int h = warp; h < H; h += blockDim.x / 32) {
-    float s = 0.f;
-    for (int t = lane; t < T; t += 32) s += p_s[h * T + t];
-    s = warp_sum(s);
-    if (lane == 0) den_s[h] = s;
-  }
-  __syncthreads();
-  for (int j = tid; j < E; j += blockDim.x) {
-    const int h = j / DH;
-    float a = 0.f;
-    for (int t = 0; t < T; ++t) a += p_s[h * T + t] * __bfloat162float(kv[t * E3 + 2 * E + j]);
-    att_last[(size_t)c * E + j] = __float2bfloat16(a * (1.f / den_s[h]));
-  }
+cudaError_t layer_norm(const bf16* x, long long ldx, const float* g, bf16* y, int M,
+                       cudaStream_t stream) {
+  ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, M);
+  return cudaGetLastError();
 }
 
-template <bool LN, int EPI>
-cudaError_t gemm(const bf16* A, int lda, const float* g, const bf16* W, int ldw, const bf16* R,
-                 int ldr, bf16* C, int ldc, int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<LN, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, g, W, ldw, R, ldr, C, ldc,
-                                                          M, N, K);
+size_t attention_smem(int W) { return ((size_t)2 * W + attn::TILE) * (DP + 8) * sizeof(bf16); }
+
+cudaError_t attention(const bf16* qkv, bf16* att, int nc, int T, cudaStream_t stream) {
+  const int W = T < ATT_WINDOW ? attn::round_up(T, attn::KC) : ATT_WINDOW;
+  const size_t smem = attention_smem(W);
+  cudaError_t err = cudaFuncSetAttribute(blocks_attention<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + attn::TILE - 1) / attn::TILE, H, nc);
+  blocks_attention<DP><<<grid, attn::WARPS * 32, smem, stream>>>(qkv, att, T, W);
   return cudaGetLastError();
 }
 
@@ -482,78 +377,86 @@ cudaError_t gemm(const bf16* A, int lda, const float* g, const bf16* W, int ldw,
 
 extern "C" {
 
-// Shape constants the kernels were built for, for the wrapper's checks.
-int fused_blocks_config(int* t, int* e, int* h) {
-  *t = T;
+// Shape constants the kernels were built for, for the wrapper's checks:
+// n_embd, heads and a head's padded width.
+int fused_blocks_config(int* e, int* h, int* dp) {
   *e = E;
   *h = H;
+  *dp = DP;
   return 0;
 }
 
-// bf16 elements of the workspace for groups of `group` contexts:
-// q|k|v [group, T, 3E], attention [group, T, E], MLP hidden [group, T, 4E],
-// the last positions' q and attention [group, E] each.
-long long fused_blocks_workspace(int group) {
-  return (long long)group * (T * (E3 + E + F) + 2 * E);
+// bf16 elements of the workspace for groups of `group` contexts of T
+// positions: xn [group, T, E], q|k|v [group, T, 3 EA], attention [group, T,
+// EA], MLP hidden [group, T, 4E], the last positions' xn [group, E], q and
+// attention [group, EA] each.  Every piece starts 16-byte aligned.
+long long fused_blocks_workspace(int group, int T) {
+  return (long long)group * T * (E + E3 + EA + F) + (long long)group * (E + 2 * EA);
 }
 
 // Runs `layers` layers on the stream x [n, T, E] in place, on `stream`, in
 // groups of `group` contexts; when last_only, the final layer is thinned
 // and its last-position output goes to out_last [n, E] (x then holds the
-// input of that layer).  Weights: wqkv [layers, E, 3E], wproj [layers, E, E],
-// wfc [layers, E, 4E], wfc2 [layers, 4E, E] bf16; gains g1, g2 [layers, E]
-// fp32.  Returns the first CUDA error of a launch (0 = all launched).
+// input of that layer).  Weights: wqkv [layers, E, 3 EA], wproj [layers,
+// EA, E], wfc [layers, E, 4E], wfc2 [layers, 4E, E] bf16, heads padded to
+// DP columns; gains g1, g2 [layers, E] fp32.  Returns the first CUDA error
+// of a launch (0 = all launched).
 int fused_blocks_forward(bf16* x, bf16* out_last, const bf16* wqkv, const bf16* wproj,
                          const bf16* wfc, const bf16* wfc2, const float* g1, const float* g2,
-                         bf16* workspace, int n, int layers, int last_only, int group,
+                         bf16* workspace, int n, int T, int layers, int last_only, int group,
                          cudaStream_t stream) {
-  if (group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
-  RETURN_IF_ERROR(cudaFuncSetAttribute(thin_attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, THIN_SMEM));
-  bf16* qkv = workspace;
-  bf16* att = qkv + (size_t)group * T * E3;
-  bf16* hid = att + (size_t)group * T * E;
-  bf16* q_last = hid + (size_t)group * T * F;
-  bf16* att_last = q_last + (size_t)group * E;
+  if (group <= 0 || layers <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const size_t rows = (size_t)group * T;
+  bf16* xn = workspace;
+  bf16* qkv = xn + rows * E;
+  bf16* att = qkv + rows * E3;
+  bf16* hid = att + rows * EA;
+  bf16* xn_last = hid + rows * F;
+  bf16* q_last = xn_last + (size_t)group * E;
+  bf16* att_last = q_last + (size_t)group * EA;
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
     bf16* xg = x + (size_t)c0 * T * E;
     for (int l = 0; l < layers; ++l) {
       const bf16* Wqkv = wqkv + (size_t)l * E * E3;
-      const bf16* Wproj = wproj + (size_t)l * E * E;
+      const bf16* Wproj = wproj + (size_t)l * EA * E;
       const bf16* Wfc = wfc + (size_t)l * E * F;
       const bf16* Wfc2 = wfc2 + (size_t)l * F * E;
       const float* G1 = g1 + (size_t)l * E;
       const float* G2 = g2 + (size_t)l * E;
+      RETURN_IF_ERROR(layer_norm(xg, E, G1, xn, M, stream));
       if (!(last_only && l == layers - 1)) {
-        RETURN_IF_ERROR((gemm<true, EPI_ROUND>(xg, E, G1, Wqkv, E3, nullptr, 0, qkv, E3, M, E3,
-                                               E, stream)));
-        attention_kernel<<<nc * H * (T / ATT_ROWS), ATT_WARPS * 32, 0, stream>>>(qkv, att);
-        RETURN_IF_ERROR(cudaGetLastError());
-        RETURN_IF_ERROR((gemm<false, EPI_RESID>(att, E, nullptr, Wproj, E, xg, E, xg, E, M, E, E,
-                                                stream)));
-        RETURN_IF_ERROR((gemm<true, EPI_GELU>(xg, E, G2, Wfc, F, nullptr, 0, hid, F, M, F, E,
-                                              stream)));
-        RETURN_IF_ERROR((gemm<false, EPI_RESID>(hid, F, nullptr, Wfc2, E, xg, E, xg, E, M, E, F,
-                                                stream)));
+        RETURN_IF_ERROR((gemm::run<false, false>(xn, E, Wqkv, E3, M, E3, E, EpiRound{qkv, E3},
+                                                 stream)));
+        RETURN_IF_ERROR(attention(qkv, att, nc, T, stream));
+        RETURN_IF_ERROR((gemm::run<false, false>(att, EA, Wproj, E, M, E, EA,
+                                                 EpiResid{xg, E, xg, E}, stream)));
+        RETURN_IF_ERROR(layer_norm(xg, E, G2, xn, M, stream));
+        RETURN_IF_ERROR((gemm::run<false, false>(xn, E, Wfc, F, M, F, E, EpiGelu{hid, F},
+                                                 stream)));
+        RETURN_IF_ERROR((gemm::run<false, false>(hid, F, Wfc2, E, M, E, F,
+                                                 EpiResid{xg, E, xg, E}, stream)));
         continue;
       }
       // thinned final layer: K|V of every row, the rest for row T-1 only
       bf16* xl = out_last + (size_t)c0 * E;
       const bf16* xlast = xg + (size_t)(T - 1) * E;
-      RETURN_IF_ERROR((gemm<true, EPI_ROUND>(xg, E, G1, Wqkv + E, E3, nullptr, 0, qkv + E, E3, M,
-                                             2 * E, E, stream)));
-      RETURN_IF_ERROR((gemm<true, EPI_ROUND>(xlast, T * E, G1, Wqkv, E3, nullptr, 0, q_last, E,
-                                             nc, E, E, stream)));
-      thin_attention_kernel<<<nc, 256, THIN_SMEM, stream>>>(q_last, qkv, att_last);
+      RETURN_IF_ERROR((gemm::run<false, false>(xn, E, Wqkv + EA, E3, M, 2 * EA, E,
+                                               EpiRound{qkv + EA, E3}, stream)));
+      RETURN_IF_ERROR(layer_norm(xlast, (long long)T * E, G1, xn_last, nc, stream));
+      RETURN_IF_ERROR((gemm::run<false, false>(xn_last, E, Wqkv, E3, nc, EA, E,
+                                               EpiRound{q_last, EA}, stream)));
+      thin_attention_kernel<<<nc, THIN_WARPS * 32, 0, stream>>>(q_last, qkv, att_last, T);
       RETURN_IF_ERROR(cudaGetLastError());
-      RETURN_IF_ERROR((gemm<false, EPI_RESID>(att_last, E, nullptr, Wproj, E, xlast, T * E, xl,
-                                              E, nc, E, E, stream)));
-      RETURN_IF_ERROR((gemm<true, EPI_GELU>(xl, E, G2, Wfc, F, nullptr, 0, hid, F, nc, F, E,
-                                            stream)));
-      RETURN_IF_ERROR((gemm<false, EPI_RESID>(hid, F, nullptr, Wfc2, E, xl, E, xl, E, nc, E, F,
-                                              stream)));
+      RETURN_IF_ERROR((gemm::run<false, false>(att_last, EA, Wproj, E, nc, E, EA,
+                                               EpiResid{xl, E, xlast, (long long)T * E},
+                                               stream)));
+      RETURN_IF_ERROR(layer_norm(xl, E, G2, xn_last, nc, stream));
+      RETURN_IF_ERROR((gemm::run<false, false>(xn_last, E, Wfc, F, nc, F, E, EpiGelu{hid, F},
+                                               stream)));
+      RETURN_IF_ERROR((gemm::run<false, false>(hid, F, Wfc2, E, nc, E, F, EpiResid{xl, E, xl, E},
+                                               stream)));
     }
   }
   return 0;

@@ -44,95 +44,82 @@
 // block at the 85M's width and blocks run in no order, so a chunk runs as
 // wide kernels over a group of up to 256 contexts at a time, one layer after
 // another, with the group's intermediates in a workspace in device memory:
-//   * gemm_kernel: C = epilogue(op(A) @ op(B)), WMMA bf16 16x16x16 tiles
-//     (mma.sync), a 128 x 64 block tile of 8 warps (32 x 32 each), the K
-//     loop 32 deep, both operands double-buffered in shared memory by
-//     cp.async.  A and B can each be read transposed (dX = dY W^T needs W^T,
-//     dW = A^T dY needs A^T), rows and columns past M and N are masked, so
-//     any width that is a multiple of 32 runs (the 2M's 160 included).
-//     Epilogues: bf16 round, tanh GELU, residual add, fp32 store, fp32 +
-//     GELU (the backward's hmid and hact), and the GELU gradient;
+//   * every product is csrc/gemm_tile.cuh's GEMM: TMA into a ring of
+//     128-byte-swizzled tiles, wgmma.mma_async from two consumer
+//     warpgroups, each operand read as it lies (dX = dY W^T reads W
+//     K-major, dW = A^T dY reads A and dY MN-major), tails zero-filled by
+//     TMA.  Epilogues on the accumulators: bf16 round, tanh GELU, residual
+//     add, fp32 store, fp32 + GELU (the backward's hmid and hact), and the
+//     GELU gradient;
 //   * the weight gradients: dW = A^T dY over the group's rows, split along
-//     the rows into per-CTA partial sums in the workspace, then
-//     reduce_add_kernel adds the partials to the fp32 gradient in a fixed
-//     order.  No atomics, so two runs give the same gradients bit for bit;
+//     the rows (the product's depth) into per-split partial sums in the
+//     workspace, enough splits to fill the card, then reduce_add_kernel
+//     adds the partials to the fp32 gradient in a fixed order.  No atomics,
+//     so two runs give the same gradients bit for bit;
 //   * ln_kernel (LN forward), ln_bwd_kernel (a warp per row: dx += LN
 //     backward, dxb = bf16(dx)) and dg_partial_kernel (the gain gradient,
 //     column sums over fixed row blocks, reduced like the weights');
-//   * the attention (redesigned for Hopper): the forward and the backward's
-//     recompute run attn::launch_fwd (csrc/attn_tile.cuh, shared with
-//     csrc/attention.cu), one CTA a (context, head) at a time, K and V
-//     staged once by cp.async, a row's scores in mma.sync accumulators;
+//   * the attention: the forward and the backward's recompute run
+//     attn::launch_fwd (csrc/attn_tile.cuh, shared with csrc/attention.cu),
+//     one CTA a (context, head), a row's scores in mma.sync accumulators;
 //     the recompute also writes each row's max and sum.  The backward's
 //     attn_bwd_q_kernel (delta and dq) and attn_bwd_kv_kernel (dk and dv)
 //     recompute p from those, so no T x T buffer exists and nothing is
-//     summed by atomics.
-// Head dim a multiple of 16 up to 128 (a template), any T from 1 to 256 (the
-// weight gradients' depth padded to whole BK tiles with zero rows), E a
-// multiple of 32.  The GEMMs and LayerNorm kernels leave wgmma, TMA and
-// fusing the group's intermediates to later work.
+//     summed by atomics; each stages the other side's rows in windows of
+//     its shared memory's size, reloaded in turn when T is past one.
+// Heads are laid out padded: each head's q, k, v, attention and their
+// gradients take DP = dh rounded up to 16 columns (the attention tiles'
+// depth), so Wqkv is [E, 3 H DP] and Wproj [H DP, E], with zero columns and
+// rows the wrapper adds and drops (none at the repo's models); zero columns
+// change no score, product or gradient.  The scale stays 1/sqrt(dh).
+// Shapes: any T >= 1, head dims 1 to 128, E a multiple of 8 (TMA's 16-byte
+// row strides).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libfused_train.so fused_train.cu   (ops/_build.py)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cmath>
 #include <type_traits>
 
 #include "attn_tile.cuh"
+#include "gemm_tile.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-using attn::cp_async16;
-using attn::cp_async_commit;
 
 namespace {
 
-constexpr int T_MAX = 256;
 constexpr float LN_EPS = 1e-5f;
 constexpr int SMS = 132;                 // SMs of an H100 SXM (sizes the split of dW)
-
-// gemm_kernel tiles
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int WM = 32, WN = 32;          // warp tile: 4 (M) x 2 (N) warps
-constexpr int GEMM_THREADS = 256;
-constexpr int LDA_N = BK + 8;            // A [BM][BK] row-major tile, padded
-constexpr int LDA_T = BM + 8;            // A^T stored [BK][BM]
-constexpr int LDB_N = BN + 8;            // B [BK][BN]
-constexpr int LDB_T = BK + 8;            // B^T stored [BN][BK]
-constexpr int A_TILE = BM * LDA_N > BK * LDA_T ? BM * LDA_N : BK * LDA_T;
-constexpr int B_TILE = BK * LDB_N > BN * LDB_T ? BK * LDB_N : BN * LDB_T;
-constexpr int MAX_SPLITS = 32;
-
-constexpr int ROWS_PER_PART = 256;         // rows of one gain-gradient partial
-
-enum Epilogue { EPI_BF16 = 0, EPI_GELU, EPI_RESID, EPI_F32, EPI_F32_GELU, EPI_GELU_GRAD };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+constexpr int MAX_SPLITS = 64;
+constexpr int ROWS_PER_PART = 256;       // rows of one gain-gradient partial
+constexpr size_t BWD_BUDGET = 180 * 1024;   // shared memory of a backward attention CTA
 
 constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
 constexpr float GELU_C = 0.044715f;
 
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
 
+// tanh-approximated GELU and its derivative, with tanh(u) = 2 s - 1, s =
+// sigmoid(2u) = 1 / (1 + 2^(-2u log2(e))): one ex2.approx and a fast
+// division (as csrc/fused_gpt.cu), within a few fp32 ulp of the accurate
+// tanh's.  gelu = h s; gelu' = 0.5 (1 + t) + 0.5 h (1 - t^2) du = s + 2 h
+// du s (1 - s).  For u below about -44 the power is inf and s = 0.
+__device__ __forceinline__ float sigmoid2(float u) {
+  return __fdividef(1.f, 1.f + attn::ex2(-2.f * attn::LOG2E * u));
+}
+
 __device__ __forceinline__ float gelu_tanh(float h) {
-  const float u = SQRT_2_OVER_PI * (h + GELU_C * h * h * h);
-  return 0.5f * h * (1.f + tanhf(u));
+  return h * sigmoid2(SQRT_2_OVER_PI * (h + GELU_C * h * h * h));
 }
 
 __device__ __forceinline__ float gelu_tanh_grad(float h) {
-  const float u = SQRT_2_OVER_PI * (h + GELU_C * h * h * h);
-  const float t = tanhf(u);
+  const float s = sigmoid2(SQRT_2_OVER_PI * (h + GELU_C * h * h * h));
   const float du = SQRT_2_OVER_PI * (1.f + 3.f * GELU_C * h * h);
-  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * du;
+  return s + 2.f * h * du * s * (1.f - s);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -141,203 +128,96 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void load8(const bf16* src, float v[8]) {
-  uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+// GEMM epilogues (gemm_tile.cuh calls them on adjacent column pairs), C's
+// rows ldc apart.  A bf16 output is staged through shared memory and stored
+// by TMA (STAGED); an fp32 one is stored from registers.
+// C16 = bf16(acc)
+struct EpiBf16 {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ float2 value(int, int, float v0, float v1, Side) const { return {v0, v1}; }
+};
+
+// C16 = bf16(gelu_tanh(acc))
+struct EpiGelu {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ float2 value(int, int, float v0, float v1, Side) const {
+    return {gelu_tanh(v0), gelu_tanh(v1)};
   }
-}
+};
 
-__device__ __forceinline__ void store8(bf16* dst, const float v[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-
-// A warp's 16x16 accumulator tile -> 8 values per lane: lane holds row
-// lane/2, columns (lane%2)*8 .. +7.
-__device__ __forceinline__ void frag_to_lane8(const FragC& c, float* stage, float v[8]) {
-  wmma::store_matrix_sync(stage, c, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const float4* p = reinterpret_cast<const float4*>(stage + lane * 8);
-  float4 a = p[0], b = p[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  __syncwarp();
-}
-
-__device__ __forceinline__ int lane_row() { return (threadIdx.x & 31) >> 1; }
-__device__ __forceinline__ int lane_col() { return (threadIdx.x & 1) * 8; }
-
-// C[M, N] = epilogue(op(A) @ op(B)) over the K range of split blockIdx.z.
-//   op(A) [M, K]: A row-major with rows lda apart, or (AT) A stored [K, M].
-//   op(B) [K, N]: B row-major with rows ldb apart, or (BT) B stored [N, K].
-// Epilogues, C's rows ldc apart:
-//   EPI_BF16      C16 = bf16(acc)
-//   EPI_GELU      C16 = bf16(gelu_tanh(acc))
-//   EPI_RESID     C16 = bf16(R + bf16(acc))        (R's rows ldr apart)
-//   EPI_F32       C32 = acc, split z at C32 + z * split_stride
-//   EPI_F32_GELU  C32 = acc, C16 = bf16(gelu_tanh(acc))
-//   EPI_GELU_GRAD C16 = bf16(acc * gelu_tanh'(X32))  (X32's rows ldc apart)
-// K is a multiple of BK, N of 16 and, with AT, M of 8; rows and columns
-// past M and N are masked.
-template <bool AT, bool BT, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, int M,
-            int N, int K, bf16* C16, float* C32, int ldc, const bf16* R, int ldr,
-            const float* __restrict__ X32, long long split_stride) {
-  __shared__ __align__(128) bf16 sa[2][A_TILE];
-  __shared__ __align__(128) bf16 sb[2][B_TILE];
-  __shared__ __align__(128) float stage_s[GEMM_THREADS / 32][16 * 16];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  const int ktiles = K / BK;
-  const int per = (ktiles + gridDim.z - 1) / gridDim.z;
-  const int kt0 = blockIdx.z * per;
-  const int kt1 = min(ktiles, kt0 + per);
-
-  auto load_tiles = [&](int s, int k0) {
-    // A: 512 chunks of 8 bf16, two a thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      if (!AT) {
-        const int r = c >> 2, col = (c & 3) * 8;
-        bf16* dst = &sa[s][r * LDA_N + col];
-        if (m0 + r < M)
-          cp_async16(dst, A + (size_t)(m0 + r) * lda + k0 + col);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      } else {
-        const int kr = c >> 4, col = (c & 15) * 8;
-        bf16* dst = &sa[s][kr * LDA_T + col];
-        if (m0 + col < M)
-          cp_async16(dst, A + (size_t)(k0 + kr) * lda + m0 + col);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    // B: 256 chunks, one a thread
-    {
-      const int c = tid;
-      if (!BT) {
-        const int kr = c >> 3, col = (c & 7) * 8;
-        bf16* dst = &sb[s][kr * LDB_N + col];
-        if (n0 + col < N)
-          cp_async16(dst, B + (size_t)(k0 + kr) * ldb + n0 + col);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      } else {
-        const int nr = c >> 2, col = (c & 3) * 8;
-        bf16* dst = &sb[s][nr * LDB_T + col];
-        if (n0 + nr < N)
-          cp_async16(dst, B + (size_t)(n0 + nr) * ldb + k0 + col);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    cp_async_commit();
-  };
-
-  FragC acc[WM / 16][WN / 16];
-#pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (kt0 < kt1) load_tiles(0, kt0 * BK);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int cur = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_tiles(cur ^ 1, (kt + 1) * BK);
-      attn::cp_async_wait<1>();
-    } else {
-      attn::cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragB fb[WN / 16];
-      FragBT fbt[WN / 16];
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) {
-        const int nn = wn * WN + j * 16;
-        if (!BT)
-          wmma::load_matrix_sync(fb[j], &sb[cur][kk * 16 * LDB_N + nn], LDB_N);
-        else
-          wmma::load_matrix_sync(fbt[j], &sb[cur][nn * LDB_T + kk * 16], LDB_T);
-      }
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i) {
-        const int mm = wm * WM + i * 16;
-        FragA fa;
-        FragAT fat;
-        if (!AT)
-          wmma::load_matrix_sync(fa, &sa[cur][mm * LDA_N + kk * 16], LDA_N);
-        else
-          wmma::load_matrix_sync(fat, &sa[cur][kk * 16 * LDA_T + mm], LDA_T);
-#pragma unroll
-        for (int j = 0; j < WN / 16; ++j) {
-          if (!AT && !BT) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
-          if (!AT && BT) wmma::mma_sync(acc[i][j], fa, fbt[j], acc[i][j]);
-          if (AT && !BT) wmma::mma_sync(acc[i][j], fat, fb[j], acc[i][j]);
-          if (AT && BT) wmma::mma_sync(acc[i][j], fat, fbt[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+// C16 = bf16(R + bf16(acc))
+struct EpiResid {
+  using Side = __nv_bfloat162;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  const bf16* r;
+  long long ldr;
+  __device__ Side load(int row, int col) const {
+    return *reinterpret_cast<const __nv_bfloat162*>(r + (size_t)row * ldr + col);
   }
+  __device__ float2 value(int, int, float v0, float v1, Side s) const {
+    const float2 x = __bfloat1622float2(s);
+    return {x.x + rbf(v0), x.y + rbf(v1)};
+  }
+};
 
-  float* stage = stage_s[warp];
-  if (EPI == EPI_F32) C32 += blockIdx.z * split_stride;
-#pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 16; ++j) {
-      float v[8];
-      frag_to_lane8(acc[i][j], stage, v);
-      const int row = m0 + wm * WM + i * 16 + lane_row();
-      const int col = n0 + wn * WN + j * 16 + lane_col();
-      if (row < M && col < N) {
-        const size_t at = (size_t)row * ldc + col;
-        if (EPI == EPI_F32 || EPI == EPI_F32_GELU) {
-          float4* d = reinterpret_cast<float4*>(C32 + at);
-          d[0] = make_float4(v[0], v[1], v[2], v[3]);
-          d[1] = make_float4(v[4], v[5], v[6], v[7]);
-        }
-        if (EPI == EPI_GELU || EPI == EPI_F32_GELU) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = gelu_tanh(v[e]);
-        } else if (EPI == EPI_RESID) {
-          float r[8];
-          load8(R + (size_t)row * ldr + col, r);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = r[e] + rbf(v[e]);
-        } else if (EPI == EPI_GELU_GRAD) {
-          const float4* x = reinterpret_cast<const float4*>(X32 + at);
-          const float4 a = x[0], b = x[1];
-          const float h[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] *= gelu_tanh_grad(h[e]);
-        }
-        if (EPI != EPI_F32) store8(C16 + at, v);
-      }
-      __syncwarp();  // reconverge before the next tile's warp-wide store
-    }
-}
+// C16 = bf16(acc * gelu_tanh'(X32))  (X32's rows ldc apart)
+struct EpiGeluGrad {
+  using Side = float2;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  const float* x32;
+  __device__ Side load(int r, int col) const {
+    return *reinterpret_cast<const float2*>(x32 + (size_t)r * ldc + col);
+  }
+  __device__ float2 value(int, int, float v0, float v1, Side h) const {
+    return {v0 * gelu_tanh_grad(h.x), v1 * gelu_tanh_grad(h.y)};
+  }
+};
+
+// C32 = acc, split z's partial at C32 + z * split_stride
+struct EpiF32 {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = false;
+  float* c;
+  int ldc;
+  long long split_stride;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ void operator()(int r, int col, float v0, float v1, Side, int z) const {
+    *reinterpret_cast<float2*>(c + z * split_stride + (size_t)r * ldc + col) = make_float2(v0, v1);
+  }
+};
+
+// C32 = acc, C16 = bf16(gelu_tanh(acc)): C16 staged, C32 (rows x cols)
+// stored from registers as each pair is formed
+struct EpiF32Gelu {
+  using Side = gemm::NoSide;
+  static constexpr bool STAGED = true;
+  bf16* c;
+  int ldc;
+  float* c32;
+  int rows, cols;
+  __device__ Side load(int, int) const { return {}; }
+  __device__ float2 value(int r, int col, float v0, float v1, Side) const {
+    if (r < rows && col < cols)
+      *reinterpret_cast<float2*>(c32 + (size_t)r * ldc + col) = make_float2(v0, v1);
+    return {gelu_tanh(v0), gelu_tanh(v1)};
+  }
+};
 
 // y[r] = bf16(LN(x[r]) * g) for M rows, a warp per row (rows ldx and ldy apart).
 __global__ void __launch_bounds__(256)
-ln_kernel(const bf16* __restrict__ x, int ldx, const float* __restrict__ g,
+ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g,
           bf16* __restrict__ y, int ldy, int M, int E) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
@@ -437,48 +317,71 @@ to_f32_kernel(const bf16* __restrict__ src, float* __restrict__ dst, long long c
 // each row's statistics m, l [ctx][H][T] (p_ij = 2^(s_ij scale' - m_i) /
 // l_i, scale' = scale * log2 e); then
 //   attn_bwd_q_kernel, one CTA a (64 query rows, head, context), K and V of
-//     the head staged whole by cp.async: pass A sums delta_i = sum_j dp_ij
-//     p_ij (fp32, dp = dA V^T), the sum the JAX kernel takes; pass B forms
-//     ds = bf16(((dp - delta) p) scale) and adds dq += ds K;
+//     the head staged by cp.async in windows of W keys: pass A sums delta_i
+//     = sum_j dp_ij p_ij (fp32, dp = dA V^T), the sum the JAX kernel takes;
+//     pass B forms ds = bf16(((dp - delta) p) scale) and adds dq += ds K;
 //   attn_bwd_kv_kernel, one CTA a (64 keys, head, context), Q and dA of the
-//     head staged whole: S^T = K Q^T and dP^T = V dA^T again, p and ds from
-//     m, l and delta, then dv += bf16(p)^T dA and dk += ds^T Q.
-// Every product runs on mma.sync from ldmatrix'ed shared-memory tiles; the
-// outputs leave 16 bytes a lane; no atomics, no T x T buffer.
+//     head staged in windows of W queries: S^T = K Q^T and dP^T = V dA^T
+//     again, p and ds from m, l and delta, then dv += bf16(p)^T dA and dk
+//     += ds^T Q.
+// A window holds the whole head while T fits BWD_BUDGET (at every T <= 256
+// and head dim) and is then staged once; past it each pass reloads the
+// windows in turn.  Every product runs on mma.sync
+// from ldmatrix'ed shared-memory tiles; the outputs leave 16 bytes a lane;
+// no atomics, no T x T buffer.
 constexpr int BC = 32;   // keys (query side) or queries (key side) a chunk
 
 template <int DH>
-size_t bwd_q_smem(int T) {
-  return ((size_t)2 * attn::round_up(T, BC) + attn::TILE) * (DH + 8) * sizeof(bf16);
+size_t bwd_q_smem(int W) {
+  return ((size_t)2 * W + attn::TILE) * (DH + 8) * sizeof(bf16);
 }
 
 template <int DH>
-size_t bwd_kv_smem(int T) {
-  const size_t tp = attn::round_up(T, BC);
-  return (2 * tp + 2 * attn::TILE) * (DH + 8) * sizeof(bf16) + 3 * tp * sizeof(float);
+size_t bwd_kv_smem(int W) {
+  return ((size_t)2 * W + 2 * attn::TILE) * (DH + 8) * sizeof(bf16) + 3 * (size_t)W * sizeof(float);
+}
+
+// The largest window (a multiple of BC) within BWD_BUDGET, or T rounded up.
+template <int DH>
+int bwd_window(int T, bool key_side) {
+  const size_t row = 2 * (DH + 8) * sizeof(bf16) + (key_side ? 3 * sizeof(float) : 0);
+  const size_t fixed = (key_side ? 2 : 1) * attn::TILE * (DH + 8) * sizeof(bf16);
+  const int w = (int)((BWD_BUDGET - fixed) / row) / BC * BC;
+  const int t = attn::round_up(T, BC);
+  return t < w ? t : w;
 }
 
 template <int DH>
 __global__ void __launch_bounds__(attn::WARPS * 32)
 attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                   const float* __restrict__ m_in, const float* __restrict__ l_in,
-                  float* __restrict__ delta_out, bf16* __restrict__ dqkv, int T, int E,
+                  float* __restrict__ delta_out, bf16* __restrict__ dqkv, int T, int EA, int W,
                   float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = DH + 8, NB = BC / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
-  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * E;
+  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * EA;
   const int r0 = blockIdx.x * attn::TILE + warp * 16;
-  const int tp = attn::round_up(T, BC);
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + (size_t)tp * LD;
-  bf16* stage = vs + (size_t)tp * LD + warp * 16 * LD;
+  bf16* vs = ks + (size_t)W * LD;
+  bf16* stage = vs + (size_t)W * LD + warp * 16 * LD;
   const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DH;
-  const bf16* dap = datt + (size_t)ctx * T * E + h * DH;
+  const bf16* dap = datt + (size_t)ctx * T * EA + h * DH;
   const size_t srow = ((size_t)ctx * H + h) * T;
-  attn::stage_rows_async<DH>(ks, qp + E, E3, 0, tp, T, threadIdx.x, blockDim.x);
-  attn::stage_rows_async<DH>(vs, qp + 2 * E, E3, 0, tp, T, threadIdx.x, blockDim.x);
-  attn::cp_async_commit();
+  const int nwin = (T + W - 1) / W;
+  auto load_window = [&](int w0) {
+    attn::stage_rows_async<DH>(ks, qp + EA, E3, w0, W, T, threadIdx.x, blockDim.x);
+    attn::stage_rows_async<DH>(vs, qp + 2 * EA, E3, w0, W, T, threadIdx.x, blockDim.x);
+    attn::cp_async_commit();
+  };
+  auto next_window = [&](int w0) {   // past one window: reload in turn
+    if (nwin == 1) return;
+    __syncthreads();
+    load_window(w0);
+    attn::cp_async_wait<0>();
+    __syncthreads();
+  };
+  if (nwin == 1) load_window(0);
   const bool active = r0 < T;
   unsigned qa[DH / 16][4], daa[DH / 16][4];
   float mr[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
@@ -488,7 +391,7 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) attn::frag_a(qa[kk], stage + kk * 16, LD);
     __syncwarp();
-    attn::stage_rows_warp<DH>(stage, dap, E, r0, 16, T);
+    attn::stage_rows_warp<DH>(stage, dap, EA, r0, 16, T);
     __syncwarp();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) attn::frag_a(daa[kk], stage + kk * 16, LD);
@@ -501,50 +404,62 @@ attn_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
   }
   attn::cp_async_wait<0>();
   __syncthreads();
-  if (!active) return;
   const float c2 = scale * attn::LOG2E;
 
   // pass A: delta_i = sum_j dp_ij p_ij
   float dl[2] = {0.f, 0.f};
-  for (int c0 = 0; c0 < tp; c0 += BC) {
-    float s[NB][4], dp[NB][4];
-    attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
-    attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
+  for (int w0 = 0; w0 < T; w0 += W) {
+    next_window(w0);
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float s[NB][4], dp[NB][4];
+      attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
+      attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool key_ok = c0 + j * 8 + 2 * c4 + (e & 1) < T;
-        const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
-        dl[e >> 1] += dp[j][e] * p;
-      }
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+          dl[e >> 1] += dp[j][e] * p;
+        }
+    }
   }
-  dl[0] = attn::quad_sum(dl[0]);
-  dl[1] = attn::quad_sum(dl[1]);
+  if (active) {
+    dl[0] = attn::quad_sum(dl[0]);
+    dl[1] = attn::quad_sum(dl[1]);
+  }
 
   // pass B: ds = bf16(((dp - delta) p) scale); dq += ds K
   float acc[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int c0 = 0; c0 < tp; c0 += BC) {
-    float s[NB][4], dp[NB][4];
-    attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
-    attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
+  for (int w0 = 0; w0 < T; w0 += W) {
+    next_window(w0);
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float s[NB][4], dp[NB][4];
+      attn::scores<DH, BC / 16>(s, qa, ks + c0 * LD, LD);
+      attn::scores<DH, BC / 16>(dp, daa, vs + c0 * LD, LD);
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool key_ok = c0 + j * 8 + 2 * c4 + (e & 1) < T;
-        const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
-        s[j][e] = ((dp[j][e] - dl[e >> 1]) * p) * scale;
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+          s[j][e] = ((dp[j][e] - dl[e >> 1]) * p) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        unsigned a[4];
+        attn::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+        attn::accumulate<DH>(acc, a, ks + (c0 + kk * 16) * LD, LD);
       }
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      unsigned a[4];
-      attn::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      attn::accumulate<DH>(acc, a, ks + (c0 + kk * 16) * LD, LD);
     }
   }
+  if (!active) return;
   attn::store_rows<DH>(acc, stage, dqkv + (size_t)ctx * T * E3 + h * DH, E3, r0, T);
   if (c4 == 0) {
 #pragma unroll
@@ -557,40 +472,43 @@ template <int DH>
 __global__ void __launch_bounds__(attn::WARPS * 32)
 attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                    const float* __restrict__ m_in, const float* __restrict__ l_in,
-                   const float* __restrict__ delta_in, bf16* __restrict__ dqkv, int T, int E,
-                   float scale) {
+                   const float* __restrict__ delta_in, bf16* __restrict__ dqkv, int T, int EA,
+                   int W, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = DH + 8, NB = BC / 8;
   constexpr bool REG = DH <= 64;   // K and V fragments in registers (else read as needed)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
-  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * E;
+  const int h = blockIdx.y, ctx = blockIdx.z, H = gridDim.y, E3 = 3 * EA;
   const int k0 = blockIdx.x * attn::TILE + warp * 16;
-  const int tp = attn::round_up(T, BC);
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* das = qs + (size_t)tp * LD;
-  bf16* kst = das + (size_t)tp * LD + warp * 32 * LD;
+  bf16* das = qs + (size_t)W * LD;
+  bf16* kst = das + (size_t)W * LD + warp * 32 * LD;
   bf16* vst = kst + 16 * LD;
-  float* ms = reinterpret_cast<float*>(das + (size_t)tp * LD + attn::WARPS * 32 * LD);
-  float* li = ms + tp;
-  float* dls = li + tp;
+  float* ms = reinterpret_cast<float*>(das + (size_t)W * LD + attn::WARPS * 32 * LD);
+  float* li = ms + W;
+  float* dls = li + W;
   const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DH;
-  const bf16* dap = datt + (size_t)ctx * T * E + h * DH;
+  const bf16* dap = datt + (size_t)ctx * T * EA + h * DH;
   const size_t srow = ((size_t)ctx * H + h) * T;
-  attn::stage_rows_async<DH>(qs, qp, E3, 0, tp, T, threadIdx.x, blockDim.x);
-  attn::stage_rows_async<DH>(das, dap, E, 0, tp, T, threadIdx.x, blockDim.x);
-  attn::cp_async_commit();
-  // queries past T: m = +inf, so that p = 2^(-inf) = 0
-  for (int i = threadIdx.x; i < tp; i += blockDim.x) {
-    const bool ok = i < T;
-    ms[i] = ok ? m_in[srow + i] : __int_as_float(0x7f800000);
-    li[i] = ok ? 1.f / l_in[srow + i] : 0.f;
-    dls[i] = ok ? delta_in[srow + i] : 0.f;
-  }
+  const int nwin = (T + W - 1) / W;
+  auto load_window = [&](int w0) {
+    attn::stage_rows_async<DH>(qs, qp, E3, w0, W, T, threadIdx.x, blockDim.x);
+    attn::stage_rows_async<DH>(das, dap, EA, w0, W, T, threadIdx.x, blockDim.x);
+    attn::cp_async_commit();
+    // queries past T: m = +inf, so that p = 2^(-inf) = 0
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      const bool ok = w0 + i < T;
+      ms[i] = ok ? m_in[srow + w0 + i] : __int_as_float(0x7f800000);
+      li[i] = ok ? 1.f / l_in[srow + w0 + i] : 0.f;
+      dls[i] = ok ? delta_in[srow + w0 + i] : 0.f;
+    }
+  };
+  if (nwin == 1) load_window(0);
   const bool active = k0 < T;
   unsigned ka[REG ? DH / 16 : 1][4], va[REG ? DH / 16 : 1][4];
   if (active) {
-    attn::stage_rows_warp<DH>(kst, qp + E, E3, k0, 16, T);
-    attn::stage_rows_warp<DH>(vst, qp + 2 * E, E3, k0, 16, T);
+    attn::stage_rows_warp<DH>(kst, qp + EA, E3, k0, 16, T);
+    attn::stage_rows_warp<DH>(vst, qp + 2 * EA, E3, k0, 16, T);
     __syncwarp();
     if constexpr (REG) {
 #pragma unroll
@@ -602,7 +520,6 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
   }
   attn::cp_async_wait<0>();
   __syncthreads();
-  if (!active) return;
   const float c2 = scale * attn::LOG2E;
 
   float dk[DH / 8][4], dv[DH / 8][4];
@@ -610,36 +527,47 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
   for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  for (int c0 = 0; c0 < tp; c0 += BC) {
-    float st[NB][4], dpt[NB][4];   // S^T and dP^T: rows are keys, columns queries
-    if constexpr (REG) {
-      attn::scores<DH, BC / 16>(st, ka, qs + c0 * LD, LD);
-      attn::scores<DH, BC / 16>(dpt, va, das + c0 * LD, LD);
-    } else {
-      attn::scores_smem_a<DH, BC / 16>(st, kst, LD, qs + c0 * LD, LD);
-      attn::scores_smem_a<DH, BC / 16>(dpt, vst, LD, das + c0 * LD, LD);
+  for (int w0 = 0; w0 < T; w0 += W) {
+    if (nwin > 1) {
+      __syncthreads();
+      load_window(w0);
+      attn::cp_async_wait<0>();
+      __syncthreads();
     }
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = c0 + j * 8 + 2 * c4 + (e & 1);
-        const float p = attn::ex2(st[j][e] * c2 - ms[i]) * li[i];
-        st[j][e] = p;
-        dpt[j][e] = ((dpt[j][e] - dls[i]) * p) * scale;
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float st[NB][4], dpt[NB][4];   // S^T and dP^T: rows are keys, columns queries
+      if constexpr (REG) {
+        attn::scores<DH, BC / 16>(st, ka, qs + c0 * LD, LD);
+        attn::scores<DH, BC / 16>(dpt, va, das + c0 * LD, LD);
+      } else {
+        attn::scores_smem_a<DH, BC / 16>(st, kst, LD, qs + c0 * LD, LD);
+        attn::scores_smem_a<DH, BC / 16>(dpt, vst, LD, das + c0 * LD, LD);
       }
 #pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      unsigned a[4];
-      attn::c_to_a(a, st[2 * kk], st[2 * kk + 1]);
-      attn::accumulate<DH>(dv, a, das + (c0 + kk * 16) * LD, LD);
-      attn::c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
-      attn::accumulate<DH>(dk, a, qs + (c0 + kk * 16) * LD, LD);
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = c0 + j * 8 + 2 * c4 + (e & 1);
+          const float p = attn::ex2(st[j][e] * c2 - ms[i]) * li[i];
+          st[j][e] = p;
+          dpt[j][e] = ((dpt[j][e] - dls[i]) * p) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        unsigned a[4];
+        attn::c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+        attn::accumulate<DH>(dv, a, das + (c0 + kk * 16) * LD, LD);
+        attn::c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
+        attn::accumulate<DH>(dk, a, qs + (c0 + kk * 16) * LD, LD);
+      }
     }
   }
+  if (!active) return;
   bf16* out = dqkv + (size_t)ctx * T * E3 + h * DH;
-  attn::store_rows<DH>(dk, kst, out + E, E3, k0, T);
-  attn::store_rows<DH>(dv, vst, out + 2 * E, E3, k0, T);
+  attn::store_rows<DH>(dk, kst, out + EA, E3, k0, T);
+  attn::store_rows<DH>(dv, vst, out + 2 * EA, E3, k0, T);
 }
 
 #define RETURN_IF_ERROR(call)                  \
@@ -648,33 +576,24 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
-template <bool AT, bool BT, int EPI>
-cudaError_t gemm(const bf16* A, int lda, const bf16* B, int ldb, int M, int N, int K, bf16* C16,
-                 float* C32, int ldc, const bf16* R, int ldr, const float* X32, int splits,
-                 cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, ldb, M, N, K, C16, C32, ldc, R, ldr, X32, (long long)M * N);
-  return cudaGetLastError();
-}
-
-// Row splits of dW = A^T dY ([Mw, Nw] over K rows): enough CTAs for two
-// waves of the card, at most MAX_SPLITS and one BK tile a split.
+// Row splits of dW = A^T dY ([Mw, Nw] over K rows): enough (tile, split)
+// pairs to give each SM one, at most MAX_SPLITS and one BK tile a split.
 int dw_splits(int Mw, int Nw, int K) {
-  const int tiles = ((Mw + BM - 1) / BM) * ((Nw + BN - 1) / BN);
-  int s = (2 * SMS + tiles - 1) / tiles;
+  const int tiles = gemm::tiles(Mw, Nw);
+  int s = (SMS + tiles - 1) / tiles;
   s = s < MAX_SPLITS ? s : MAX_SPLITS;
-  return s < K / BK ? s : K / BK;
+  const int kt = (K + gemm::BK - 1) / gemm::BK;
+  return s < kt ? s : kt;
 }
 
 // dw[Mw, Nw] += A^T dY over K rows (A [K, Mw], dY [K, Nw] row-major).
 cudaError_t weight_grad(const bf16* A, const bf16* dY, int Mw, int Nw, int K, float* partial,
                         float* dw, cudaStream_t stream) {
   const int splits = dw_splits(Mw, Nw, K);
-  cudaError_t err = gemm<true, false, EPI_F32>(A, Mw, dY, Nw, Mw, Nw, K, nullptr, partial, Nw,
-                                               nullptr, 0, nullptr, splits, stream);
-  if (err != cudaSuccess) return err;
   const long long count = (long long)Mw * Nw;
+  cudaError_t err = gemm::run<true, false>(A, Mw, dY, Nw, Mw, Nw, K, EpiF32{partial, Nw, count},
+                                           stream, splits);
+  if (err != cudaSuccess) return err;
   reduce_add_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(partial, splits, count,
                                                                          dw);
   return cudaGetLastError();
@@ -690,8 +609,8 @@ cudaError_t gain_grad(const bf16* x, const float* dy, const float* mu, const flo
   return cudaGetLastError();
 }
 
-cudaError_t layer_norm(const bf16* x, int ldx, const float* g, bf16* y, int ldy, int M, int E,
-                       cudaStream_t stream) {
+cudaError_t layer_norm(const bf16* x, long long ldx, const float* g, bf16* y, int ldy, int M,
+                       int E, cudaStream_t stream) {
   ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, ldy, M, E);
   return cudaGetLastError();
 }
@@ -699,26 +618,34 @@ cudaError_t layer_norm(const bf16* x, int ldx, const float* g, bf16* y, int ldy,
 // 1/sqrt(dh) in double, rounded once to fp32, as the JAX kernels' python scale
 float attn_scale(int dh) { return (float)(1.0 / std::sqrt((double)dh)); }
 
-// att = the attention of qkv [nc, T, 3E] -> [nc, T, E] (attn::launch_fwd
+// The attention's shape: H heads of dh columns, each padded to DP (the
+// template DH of the kernels), EA = H DP wide.
+struct Heads {
+  int H, dh, EA;
+};
+
+// att = the attention of qkv [nc, T, 3 EA] -> [nc, T, EA] (attn::launch_fwd
 // over the nc x H (context, head) pairs), and each row's statistics m, l
 // [nc, H, T] when not null.
 template <int DH>
-cudaError_t attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T, int E,
-                          cudaStream_t stream) {
-  const int H = E / DH;
-  const long long E3 = 3LL * E;
-  const attn::Strides sqkv{T * E3, DH, E3}, so{(long long)T * E, DH, E};
-  return attn::launch_fwd<DH>(qkv, qkv + E, qkv + 2 * E, att, sqkv, sqkv, sqkv, so, nc * H, H, T,
-                              attn_scale(DH), m, l, stream);
+cudaError_t attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T,
+                          Heads hd, cudaStream_t stream) {
+  const long long E3 = 3LL * hd.EA;
+  const attn::Strides sqkv{T * E3, DH, E3}, so{(long long)T * hd.EA, DH, hd.EA};
+  return attn::launch_fwd<DH>(qkv, qkv + hd.EA, qkv + 2 * hd.EA, att, sqkv, sqkv, sqkv, so,
+                              nc * hd.H, hd.H, T, attn_scale(hd.dh), m, l, stream);
 }
 
-// dqkv [nc, T, 3E] from qkv, datt [nc, T, E] and the forward's m, l; delta
-// [nc, H, T] is the query side's scratch for the key side.
+// dqkv [nc, T, 3 EA] from qkv, datt [nc, T, EA] and the forward's m, l;
+// delta [nc, H, T] is the query side's scratch for the key side.
 template <int DH>
 cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, const float* l,
-                          float* delta, bf16* dqkv, int nc, int T, int E, cudaStream_t stream) {
-  const dim3 grid((T + attn::TILE - 1) / attn::TILE, E / DH, nc);
-  const size_t sq = bwd_q_smem<DH>(T), skv = bwd_kv_smem<DH>(T);
+                          float* delta, bf16* dqkv, int nc, int T, Heads hd,
+                          cudaStream_t stream) {
+  const dim3 grid((T + attn::TILE - 1) / attn::TILE, hd.H, nc);
+  const int wq = bwd_window<DH>(T, false), wkv = bwd_window<DH>(T, true);
+  const size_t sq = bwd_q_smem<DH>(wq), skv = bwd_kv_smem<DH>(wkv);
+  const float scale = attn_scale(hd.dh);
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq);
   if (err != cudaSuccess) return err;
@@ -726,11 +653,11 @@ cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, con
                              (int)skv);
   if (err != cudaSuccess) return err;
   attn_bwd_q_kernel<DH><<<grid, attn::WARPS * 32, sq, stream>>>(qkv, datt, m, l, delta, dqkv, T,
-                                                                E, attn_scale(DH));
+                                                                hd.EA, wq, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_bwd_kv_kernel<DH><<<grid, attn::WARPS * 32, skv, stream>>>(qkv, datt, m, l, delta, dqkv,
-                                                                  T, E, attn_scale(DH));
+                                                                  T, hd.EA, wkv, scale);
   return cudaGetLastError();
 }
 
@@ -748,11 +675,11 @@ struct FwdBufs {
   bf16 *xn, *qkv, *att, *hact;
 };
 
-FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E) {
+FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E, int EA) {
   FwdBufs b;
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
-  b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * E * 2));
-  b.att = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
+  b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * EA * 2));
+  b.att = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
   b.hact = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
   return b;
 }
@@ -762,24 +689,19 @@ struct BwdBufs {
   bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv;
 };
 
-// Rows of a group's buffers: g T rounded up to the GEMM's depth BK, so that
-// the weight gradients (dW = A^T dY, the rows as the product's depth) run
-// over whole BK tiles of rows; the rows past g T of their operands (hact,
-// dxb, xn, dh, att, dqkv) are zeroed at the start of each group.
-size_t padded_rows(int g, int T) { return (size_t)attn::round_up(g * T, BK); }
-
-BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H) {
-  const size_t rows = padded_rows(g, T);
+BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, Heads hd) {
+  const size_t rows = (size_t)g * T;
+  const int EA = hd.EA;
   BwdBufs b;
   b.dx = reinterpret_cast<float*>(base + w.take(rows * E * 4));
   b.hmid = reinterpret_cast<float*>(base + w.take(rows * 4 * E * 4));
   b.dxn = reinterpret_cast<float*>(base + w.take(rows * E * 4));
   b.mu = reinterpret_cast<float*>(base + w.take(rows * 4));
   b.rs = reinterpret_cast<float*>(base + w.take(rows * 4));
-  // dW partials: at most MAX_SPLITS x the largest stack slice, or the gains'
+  // dW partials: at most the largest splits x stack slice, or the gains'
   size_t part = 0;
   const int K = (int)rows;
-  const int shapes[4][2] = {{E, 3 * E}, {E, E}, {E, 4 * E}, {4 * E, E}};
+  const int shapes[4][2] = {{E, 3 * EA}, {EA, E}, {E, 4 * E}, {4 * E, E}};
   for (auto& s : shapes) {
     const size_t need = (size_t)dw_splits(s[0], s[1], K) * s[0] * s[1];
     part = need > part ? need : part;
@@ -788,44 +710,34 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int H
   part = gparts > part ? gparts : part;
   b.partial = reinterpret_cast<float*>(base + w.take(part * 4));
   // the attention's row statistics and delta, [g, H, T] each
-  b.m = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
-  b.l = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
-  b.delta = reinterpret_cast<float*>(base + w.take((size_t)g * H * T * 4));
+  b.m = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
+  b.l = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
+  b.delta = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
   b.dxb = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.hact = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
   b.dh = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
-  b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * E * 2));
-  b.att = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
-  b.datt = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
-  b.dqkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * E * 2));
+  b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * EA * 2));
+  b.att = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
+  b.datt = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
+  b.dqkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * EA * 2));
   return b;
 }
 
-// Zero rows M .. padded of the weight gradients' operands.
-cudaError_t zero_pad_rows(const BwdBufs& b, size_t M, size_t padded, int E,
-                          cudaStream_t stream) {
-  if (padded == M) return cudaSuccess;
-  const size_t n = padded - M;
-  const struct { bf16* p; int cols; } bufs[] = {{b.hact, 4 * E}, {b.dxb, E}, {b.xn, E},
-                                                {b.dh, 4 * E},   {b.att, E}, {b.dqkv, 3 * E}};
-  for (const auto& x : bufs) {
-    cudaError_t err = cudaMemsetAsync(x.p + M * x.cols, 0, n * x.cols * sizeof(bf16), stream);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 bool shape_ok(int T, int E, int H) {
-  if (H <= 0 || E % H || E % 32 || T < 1 || T > T_MAX) return false;
-  const int dh = E / H;
-  return dh % 16 == 0 && dh <= 128;
+  if (H <= 0 || E % H || E % 8 || T < 1) return false;
+  return E / H <= 128;
 }
 
-// f(std::integral_constant<int, DH>()) for the head dim dh (shape_ok holds).
+Heads heads_of(int E, int H) {
+  const int dh = E / H;
+  return Heads{H, dh, H * ((dh + 15) / 16 * 16)};
+}
+
+// f(std::integral_constant<int, DP>()) for the padded head dim dp (shape_ok holds).
 template <typename Fn>
-int with_head_dim(int dh, Fn f) {
-  switch (dh) {
+int with_head_dim(int dp, Fn f) {
+  switch (dp) {
     case 16: return f(std::integral_constant<int, 16>());
     case 32: return f(std::integral_constant<int, 32>());
     case 48: return f(std::integral_constant<int, 48>());
@@ -840,48 +752,50 @@ int with_head_dim(int dh, Fn f) {
 template <int DH>
 int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const bf16* wproj,
                  const bf16* wfc, const bf16* wfc2, const float* g1, const float* g2,
-                 unsigned char* ws, int n, int T, int E, int layers, int last_only, int group,
-                 cudaStream_t stream) {
-  const int E3 = 3 * E, F = 4 * E;
+                 unsigned char* ws, int n, int T, int E, Heads hd, int layers, int last_only,
+                 int group, cudaStream_t stream) {
+  const int EA = hd.EA, E3 = 3 * EA, F = 4 * E;
   const size_t stream_elems = (size_t)n * T * E;
   RETURN_IF_ERROR(cudaMemcpyAsync(xsave, x, stream_elems * 2, cudaMemcpyDeviceToDevice, stream));
   Workspace w;
-  const FwdBufs b = fwd_layout(ws, w, (size_t)group * T, E);
+  const FwdBufs b = fwd_layout(ws, w, (size_t)group * T, E, EA);
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
     for (int l = 0; l < layers; ++l) {
       const bf16* Wqkv = wqkv + (size_t)l * E * E3;
-      const bf16* Wproj = wproj + (size_t)l * E * E;
+      const bf16* Wproj = wproj + (size_t)l * EA * E;
       const bf16* Wfc = wfc + (size_t)l * E * F;
       const bf16* Wfc2 = wfc2 + (size_t)l * F * E;
       const bf16* xin = xsave + ((size_t)(2 * l) * n + c0) * T * E;
       bf16* xmid = xsave + ((size_t)(2 * l + 1) * n + c0) * T * E;
       RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
-      RETURN_IF_ERROR((gemm<false, false, EPI_BF16>(b.xn, E, Wqkv, E3, M, E3, E, b.qkv, nullptr,
-                                                    E3, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nullptr, nullptr, nc, T, E, stream));
-      RETURN_IF_ERROR((gemm<false, false, EPI_RESID>(b.att, E, Wproj, E, M, E, E, xmid, nullptr,
-                                                     E, xin, E, nullptr, 1, stream)));
+      RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wqkv, E3, M, E3, E, EpiBf16{b.qkv, E3},
+                                               stream)));
+      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nullptr, nullptr, nc, T, hd, stream));
+      RETURN_IF_ERROR((gemm::run<false, false>(b.att, EA, Wproj, E, M, E, EA,
+                                               EpiResid{xmid, E, xin, E}, stream)));
       const bool last = l == layers - 1;
       if (last && last_only) {
         // only the last position leaves the chunk: its MLP alone
         const bf16* xm_last = xmid + (size_t)(T - 1) * E;
-        RETURN_IF_ERROR(layer_norm(xm_last, T * E, g2 + (size_t)l * E, b.xn, E, nc, E, stream));
-        RETURN_IF_ERROR((gemm<false, false, EPI_GELU>(b.xn, E, Wfc, F, nc, F, E, b.hact, nullptr,
-                                                      F, nullptr, 0, nullptr, 1, stream)));
-        RETURN_IF_ERROR((gemm<false, false, EPI_RESID>(b.hact, F, Wfc2, E, nc, E, F,
-                                                       out + (size_t)c0 * E, nullptr, E, xm_last,
-                                                       T * E, nullptr, 1, stream)));
+        RETURN_IF_ERROR(layer_norm(xm_last, (long long)T * E, g2 + (size_t)l * E, b.xn, E, nc, E,
+                                   stream));
+        RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, nc, F, E, EpiGelu{b.hact, F},
+                                                 stream)));
+        RETURN_IF_ERROR((gemm::run<false, false>(
+            b.hact, F, Wfc2, E, nc, E, F, EpiResid{out + (size_t)c0 * E, E, xm_last,
+                                                   (long long)T * E},
+            stream)));
         continue;
       }
       bf16* xnext = last ? out + (size_t)c0 * T * E
                          : xsave + ((size_t)(2 * l + 2) * n + c0) * T * E;
       RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, stream));
-      RETURN_IF_ERROR((gemm<false, false, EPI_GELU>(b.xn, E, Wfc, F, M, F, E, b.hact, nullptr, F,
-                                                    nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR((gemm<false, false, EPI_RESID>(b.hact, F, Wfc2, E, M, E, F, xnext, nullptr,
-                                                     E, xmid, E, nullptr, 1, stream)));
+      RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, M, F, E, EpiGelu{b.hact, F},
+                                               stream)));
+      RETURN_IF_ERROR((gemm::run<false, false>(b.hact, F, Wfc2, E, M, E, F,
+                                               EpiResid{xnext, E, xmid, E}, stream)));
     }
   }
   return 0;
@@ -891,22 +805,20 @@ template <int DH>
 int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const bf16* wproj,
                   const bf16* wfc, const bf16* wfc2, const float* g1, const float* g2, bf16* dx0,
                   float* dwqkv, float* dwproj, float* dwfc, float* dwfc2, float* dg1, float* dg2,
-                  unsigned char* ws, int n, int T, int E, int layers, int group,
+                  unsigned char* ws, int n, int T, int E, Heads hd, int layers, int group,
                   cudaStream_t stream) {
-  const int E3 = 3 * E, F = 4 * E, H = E / DH;
+  const int EA = hd.EA, E3 = 3 * EA, F = 4 * E;
   RETURN_IF_ERROR(cudaMemsetAsync(dwqkv, 0, (size_t)layers * E * E3 * 4, stream));
-  RETURN_IF_ERROR(cudaMemsetAsync(dwproj, 0, (size_t)layers * E * E * 4, stream));
+  RETURN_IF_ERROR(cudaMemsetAsync(dwproj, 0, (size_t)layers * EA * E * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dwfc, 0, (size_t)layers * E * F * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dwfc2, 0, (size_t)layers * F * E * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dg1, 0, (size_t)layers * E * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dg2, 0, (size_t)layers * E * 4, stream));
   Workspace w;
-  const BwdBufs b = bwd_layout(ws, w, group, T, E, H);
+  const BwdBufs b = bwd_layout(ws, w, group, T, E, hd);
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
-    const int Mp = (int)padded_rows(nc, T);   // the weight gradients' depth
-    RETURN_IF_ERROR(zero_pad_rows(b, M, Mp, E, stream));
     const long long elems = (long long)M * E;
     const bf16* dxin_g = dxin + (size_t)c0 * T * E;
     to_f32_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(dxin_g, b.dx, elems);
@@ -914,7 +826,7 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
     RETURN_IF_ERROR(cudaMemcpyAsync(b.dxb, dxin_g, elems * 2, cudaMemcpyDeviceToDevice, stream));
     for (int l = layers - 1; l >= 0; --l) {
       const bf16* Wqkv = wqkv + (size_t)l * E * E3;
-      const bf16* Wproj = wproj + (size_t)l * E * E;
+      const bf16* Wproj = wproj + (size_t)l * EA * E;
       const bf16* Wfc = wfc + (size_t)l * E * F;
       const bf16* Wfc2 = wfc2 + (size_t)l * F * E;
       const bf16* xin = xsave + ((size_t)(2 * l) * n + c0) * T * E;
@@ -922,16 +834,16 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
 
       // MLP backward (recompute xn2, hmid, hact)
       RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, stream));
-      RETURN_IF_ERROR((gemm<false, false, EPI_F32_GELU>(b.xn, E, Wfc, F, M, F, E, b.hact, b.hmid,
-                                                        F, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, Mp, b.partial, dwfc2 + (size_t)l * F * E,
+      RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, M, F, E,
+                                               EpiF32Gelu{b.hact, F, b.hmid, M, F}, stream)));
+      RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, M, b.partial, dwfc2 + (size_t)l * F * E,
                                   stream));
-      RETURN_IF_ERROR((gemm<false, true, EPI_GELU_GRAD>(b.dxb, E, Wfc2, E, M, F, E, b.dh, nullptr,
-                                                        F, nullptr, 0, b.hmid, 1, stream)));
-      RETURN_IF_ERROR(weight_grad(b.xn, b.dh, E, F, Mp, b.partial, dwfc + (size_t)l * E * F,
+      RETURN_IF_ERROR((gemm::run<false, true>(b.dxb, E, Wfc2, E, M, F, E,
+                                              EpiGeluGrad{b.dh, F, b.hmid}, stream)));
+      RETURN_IF_ERROR(weight_grad(b.xn, b.dh, E, F, M, b.partial, dwfc + (size_t)l * E * F,
                                   stream));
-      RETURN_IF_ERROR((gemm<false, true, EPI_F32>(b.dh, F, Wfc, F, M, E, F, nullptr, b.dxn, E,
-                                                  nullptr, 0, nullptr, 1, stream)));
+      RETURN_IF_ERROR((gemm::run<false, true>(b.dh, F, Wfc, F, M, E, F, EpiF32{b.dxn, E, 0},
+                                              stream)));
       ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xmid, g2 + (size_t)l * E, b.dxn, b.dx, b.dxb,
                                                      b.mu, b.rs, M, E);
       RETURN_IF_ERROR(cudaGetLastError());
@@ -940,18 +852,19 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
 
       // attention backward (recompute xn1, q|k|v, att and p)
       RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
-      RETURN_IF_ERROR((gemm<false, false, EPI_BF16>(b.xn, E, Wqkv, E3, M, E3, E, b.qkv, nullptr,
-                                                    E3, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, b.m, b.l, nc, T, E, stream));
-      RETURN_IF_ERROR(weight_grad(b.att, b.dxb, E, E, Mp, b.partial, dwproj + (size_t)l * E * E,
+      RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wqkv, E3, M, E3, E, EpiBf16{b.qkv, E3},
+                                               stream)));
+      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, b.m, b.l, nc, T, hd, stream));
+      RETURN_IF_ERROR(weight_grad(b.att, b.dxb, EA, E, M, b.partial, dwproj + (size_t)l * EA * E,
                                   stream));
-      RETURN_IF_ERROR((gemm<false, true, EPI_BF16>(b.dxb, E, Wproj, E, M, E, E, b.datt, nullptr,
-                                                   E, nullptr, 0, nullptr, 1, stream)));
-      RETURN_IF_ERROR(attention_bwd<DH>(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, E, stream));
-      RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, Mp, b.partial, dwqkv + (size_t)l * E * E3,
+      RETURN_IF_ERROR((gemm::run<false, true>(b.dxb, E, Wproj, E, M, EA, E, EpiBf16{b.datt, EA},
+                                              stream)));
+      RETURN_IF_ERROR(attention_bwd<DH>(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, hd,
+                                        stream));
+      RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, M, b.partial, dwqkv + (size_t)l * E * E3,
                                   stream));
-      RETURN_IF_ERROR((gemm<false, true, EPI_F32>(b.dqkv, E3, Wqkv, E3, M, E, E3, nullptr, b.dxn,
-                                                  E, nullptr, 0, nullptr, 1, stream)));
+      RETURN_IF_ERROR((gemm::run<false, true>(b.dqkv, E3, Wqkv, E3, M, E, E3,
+                                              EpiF32{b.dxn, E, 0}, stream)));
       // the bottom layer's bf16(dx) is the chunk's output
       bf16* dxb_out = l == 0 ? dx0 + (size_t)c0 * T * E : b.dxb;
       ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xin, g1 + (size_t)l * E, b.dxn, b.dx,
@@ -973,35 +886,37 @@ extern "C" {
 long long fused_train_workspace(int kind, int group, int T, int E, int H) {
   if (!shape_ok(T, E, H) || group <= 0) return -1;
   Workspace w;
+  const Heads hd = heads_of(E, H);
   if (kind == 0)
-    fwd_layout(nullptr, w, (size_t)group * T, E);
+    fwd_layout(nullptr, w, (size_t)group * T, E, hd.EA);
   else
-    bwd_layout(nullptr, w, group, T, E, H);
+    bwd_layout(nullptr, w, group, T, E, hd);
   return (long long)w.bytes;
 }
 
 // Forward of a chunk of `layers` layers on n contexts, on `stream`, in
 // groups of `group`: x [n, T, E] -> out [n, T, E] (or [n, E], the last
-// position, when last_only) and xsave [2 layers, n, T, E].  Weights: wqkv
-// [layers, E, 3E], wproj [layers, E, E], wfc [layers, E, 4E], wfc2
-// [layers, 4E, E] bf16; g1, g2 [layers, E] fp32.  Returns the first CUDA
-// error of a launch (0 = all launched).
+// position, when last_only) and xsave [2 layers, n, T, E].  Weights, heads
+// padded to DP columns (EA = H DP): wqkv [layers, E, 3 EA], wproj [layers,
+// EA, E], wfc [layers, E, 4E], wfc2 [layers, 4E, E] bf16; g1, g2 [layers,
+// E] fp32.  Returns the first CUDA error of a launch (0 = all launched).
 int fused_train_forward(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv,
                         const bf16* wproj, const bf16* wfc, const bf16* wfc2, const float* g1,
                         const float* g2, void* workspace, int n, int T, int E, int H, int layers,
                         int last_only, int group, cudaStream_t stream) {
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  return with_head_dim(E / H, [&](auto dh) {
-    return forward_impl<decltype(dh)::value>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws,
-                                             n, T, E, layers, last_only, group, stream);
+  const Heads hd = heads_of(E, H);
+  return with_head_dim(hd.EA / H, [&](auto dp) {
+    return forward_impl<decltype(dp)::value>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws,
+                                             n, T, E, hd, layers, last_only, group, stream);
   });
 }
 
 // Backward of a chunk: xsave [2 layers, n, T, E] and dxin [n, T, E] (the
 // gradient of the chunk's output stream) -> dx0 [n, T, E] bf16 and the fp32
-// gradients of the stacks (dwqkv .. dg2, the stacks' shapes), summed over
-// all n contexts in a fixed order.
+// gradients of the stacks (dwqkv .. dg2, the padded stacks' shapes), summed
+// over all n contexts in a fixed order.
 int fused_train_backward(const bf16* xsave, const bf16* dxin, const bf16* wqkv,
                          const bf16* wproj, const bf16* wfc, const bf16* wfc2, const float* g1,
                          const float* g2, bf16* dx0, float* dwqkv, float* dwproj, float* dwfc,
@@ -1009,11 +924,35 @@ int fused_train_backward(const bf16* xsave, const bf16* dxin, const bf16* wqkv,
                          int E, int H, int layers, int group, cudaStream_t stream) {
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  return with_head_dim(E / H, [&](auto dh) {
-    return backward_impl<decltype(dh)::value>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0,
+  const Heads hd = heads_of(E, H);
+  return with_head_dim(hd.EA / H, [&](auto dp) {
+    return backward_impl<decltype(dp)::value>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0,
                                               dwqkv, dwproj, dwfc, dwfc2, dg1, dg2, ws, n, T, E,
-                                              layers, group, stream);
+                                              hd, layers, group, stream);
   });
+}
+
+// The GEMM alone, for its checks and its timing beside cuBLAS: C [M, N] =
+// op(A) op(B) with A stored [M, K] or (a_mn) [K, M], B stored [K, N] or
+// (b_k) [N, K], every row stride the stored row's length; C bf16, or fp32
+// (f32) as `splits` partials [splits, M, N] over the split K.
+int fused_train_gemm(const bf16* A, const bf16* B, void* C, int M, int N, int K, int a_mn,
+                     int b_k, int f32, int splits, cudaStream_t stream) {
+  const long long lda = a_mn ? M : K, ldb = b_k ? K : N;
+  cudaError_t err;
+  auto run = [&](auto epi) {
+    if (a_mn && b_k) return gemm::run<true, true>(A, lda, B, ldb, M, N, K, epi, stream, splits);
+    if (a_mn) return gemm::run<true, false>(A, lda, B, ldb, M, N, K, epi, stream, splits);
+    if (b_k) return gemm::run<false, true>(A, lda, B, ldb, M, N, K, epi, stream, splits);
+    return gemm::run<false, false>(A, lda, B, ldb, M, N, K, epi, stream, splits);
+  };
+  if (f32)
+    err = run(EpiF32{static_cast<float*>(C), N, (long long)M * N});
+  else if (splits == 1)
+    err = run(EpiBf16{static_cast<bf16*>(C), N});
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 const char* fused_train_error_string(int code) {

@@ -22,11 +22,13 @@ Port of ``mapf_gpt_tpu/ops/fused_gpt.py``'s ``_block_kernel`` (through
 
 The kernel is built for the width of the stacks it is given, on first use:
 the 85M's (E=768, head dim 64) from the source as it stands, any other as a
-library of its own (``-DFUSED_BLOCKS_E``, ``-DFUSED_BLOCKS_DH``).
-:func:`check_width` raises, before ``nvcc`` starts, for a width the kernel
-cannot hold (T other than 256, E not a multiple of 32, head dim not a
-multiple of 16 up to 128, or the thin attention's H x T fp32 scores over a
-block's 227 KB of shared memory).  The plain version takes any shape.
+library of its own (``-DFUSED_BLOCKS_E``, ``-DFUSED_BLOCKS_DH``); T is a
+runtime argument.  :func:`check_width` raises, before ``nvcc`` starts, for
+a width the kernel cannot hold: n_embd not a multiple of 8 (the GEMM's TMA
+wants 16-byte row strides) or a head dim past 128 (the attention tiles'
+widest).  A head dim that is not a multiple of 16 runs with each head's
+q|k|v columns and projection rows padded with zeros to one
+(:func:`pad_heads`).  The plain version takes any shape.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 
 _EPS = 1e-5
 _EXP2_CLAMP = 100.0   # overflow guard on the exp2 argument (bf16 max ~2^127)
-GROUP = 256           # contexts a kernel call processes at a time (workspace ~0.8 GB)
+GROUP = 256           # contexts a kernel call processes at a time (workspace ~0.9 GB)
 
 launches = 0   # kernel calls by fused_blocks; callers may reset it to 0
 
@@ -110,36 +112,54 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_blocks_config.argtypes = [ctypes.POINTER(i)] * 3
     lib.fused_blocks_config.restype = i
-    lib.fused_blocks_workspace.argtypes = [i]
+    lib.fused_blocks_workspace.argtypes = [i, i]
     lib.fused_blocks_workspace.restype = ctypes.c_longlong
-    lib.fused_blocks_forward.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.fused_blocks_forward.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.fused_blocks_forward.restype = i
     lib.fused_blocks_error_string.argtypes = [i]
     lib.fused_blocks_error_string.restype = ctypes.c_char_p
     return lib
 
 
-_T = 256                     # the context length the kernel is built for
 _DEFAULT_WIDTH = (768, 64)   # (n_embd, head dim) the source builds with no defines
-_SMEM_LIMIT = 232448         # shared memory a block can have on sm_90
+_MAX_HEAD_DIM = 128          # the attention tiles' widest head
 
 
 def check_width(t: int, e: int, n_head: int) -> None:
     """Raise ValueError, naming the constraint, unless the kernel can be
-    built for T=t, n_embd=e and n_head heads (the static_asserts of
-    csrc/fused_blocks.cu)."""
-    if t != _T:
-        raise ValueError(f"fused_blocks: T must be {_T}; got {t}")
+    built for n_embd=e and n_head heads and run at T=t (the static_asserts
+    of csrc/fused_blocks.cu)."""
+    if t < 1:
+        raise ValueError(f"fused_blocks: T must be at least 1; got {t}")
     if n_head <= 0 or e % n_head:
         raise ValueError(f"fused_blocks: n_embd {e} is not a multiple of n_head {n_head}")
     dh = e // n_head
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"fused_blocks: head dim must be a multiple of 16 up to 128; got {dh}")
-    if e % 32:
-        raise ValueError(f"fused_blocks: n_embd must be a multiple of 32; got {e}")
-    if (e + n_head * t + n_head) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"fused_blocks: {n_head} heads x T={t} exceed the thin attention's "
-                         f"{_SMEM_LIMIT} bytes of shared memory")
+    if dh > _MAX_HEAD_DIM:
+        raise ValueError(f"fused_blocks: head dim must be at most {_MAX_HEAD_DIM}; got {dh}")
+    if e % 8:
+        raise ValueError(f"fused_blocks: n_embd must be a multiple of 8 (the GEMM's 16-byte "
+                         f"row strides); got {e}")
+
+
+def padded_head_dim(dh: int) -> int:
+    """A head's width in the kernels' layout: dh rounded up to 16."""
+    return -(-dh // 16) * 16
+
+
+def pad_heads(wqkv: torch.Tensor, wproj: torch.Tensor, n_head: int):
+    """(wqkv [L, E, 3 H DP], wproj [L, H DP, E]) from wqkv [L, E, 3E] and
+    wproj [L, E, E]: each head's q, k and v columns and its projection rows
+    padded with zeros to DP = :func:`padded_head_dim` (the kernels' layout;
+    the tensors themselves when the head dim is a multiple of 16)."""
+    layers, e, _ = wqkv.shape
+    dh = e // n_head
+    dp = padded_head_dim(dh)
+    if dp == dh:
+        return wqkv, wproj
+    wqkv = F.pad(wqkv.reshape(layers, e, 3, n_head, dh), (0, dp - dh))
+    wproj = F.pad(wproj.reshape(layers, n_head, dh, e), (0, 0, 0, dp - dh))
+    return (wqkv.reshape(layers, e, 3 * n_head * dp).contiguous(),
+            wproj.reshape(layers, n_head * dp, e).contiguous())
 
 
 def kernel_defines(e: int, n_head: int) -> dict[str, int]:
@@ -159,10 +179,10 @@ def _library(e: int = 768, n_head: int = 12) -> ctypes.CDLL:
 @functools.cache
 def kernel_config(e: int = 768, n_head: int = 12) -> dict[str, int]:
     """The shape constants of the kernel built for this width (builds it if
-    needed)."""
+    needed): n_embd, heads and a head's padded width."""
     vals = [ctypes.c_int() for _ in range(3)]
     _library(e, n_head).fused_blocks_config(*[ctypes.byref(v) for v in vals])
-    return dict(zip(("t", "e", "h"), (v.value for v in vals)))
+    return dict(zip(("e", "h", "dp"), (v.value for v in vals)))
 
 
 def check_tensor(kernel: str, name: str, ten: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -194,10 +214,10 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
         raise ValueError("fused_blocks: no layers")
     lib = _library(e, stacks.n_head)
     cfg = kernel_config(e, stacks.n_head)
-    if (t, e, stacks.n_head) != (cfg["t"], cfg["e"], cfg["h"]):
+    if (e, stacks.n_head) != (cfg["e"], cfg["h"]):
         raise ValueError(
-            f"fused_blocks: the library is built for T={cfg['t']}, n_embd={cfg['e']}, "
-            f"{cfg['h']} heads; got T={t}, n_embd={e}, {stacks.n_head} heads")
+            f"fused_blocks: the library is built for n_embd={cfg['e']}, {cfg['h']} heads; "
+            f"got n_embd={e}, {stacks.n_head} heads")
     dev = x.device
     f = 4 * e
     for name, ten, dtype, shape in (
@@ -213,16 +233,17 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
     out = torch.empty((n, 1, e), dtype=torch.bfloat16, device=dev) if last_only else stream_x
     if n == 0:
         return out
+    wqkv, wproj = pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head)
     group = min(n, GROUP)
-    workspace = torch.empty(lib.fused_blocks_workspace(group), dtype=torch.bfloat16,
+    workspace = torch.empty(lib.fused_blocks_workspace(group, t), dtype=torch.bfloat16,
                             device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_blocks_forward(
-            stream_x.data_ptr(), out.data_ptr(), stacks.wqkv.data_ptr(),
-            stacks.wproj.data_ptr(), stacks.wfc.data_ptr(), stacks.wfc2.data_ptr(),
-            stacks.g1.data_ptr(), stacks.g2.data_ptr(), workspace.data_ptr(), n, layers,
-            int(last_only), group, stream)
+            stream_x.data_ptr(), out.data_ptr(), wqkv.data_ptr(), wproj.data_ptr(),
+            stacks.wfc.data_ptr(), stacks.wfc2.data_ptr(), stacks.g1.data_ptr(),
+            stacks.g2.data_ptr(), workspace.data_ptr(), n, t, layers, int(last_only), group,
+            stream)
     if rc != 0:
         raise RuntimeError("fused_blocks kernel launch failed: "
                            f"{lib.fused_blocks_error_string(rc).decode()} ({rc})")

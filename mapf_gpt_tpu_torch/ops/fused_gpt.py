@@ -25,8 +25,10 @@ of heads with head dims multiples of 16 from 16 to 128, n_embd up to 256;
 the 2M's and 6M's widths come from the source as it stands, any other from
 ``-DFUSED_GPT_E/H``), and otherwise as the same
 function in three steps: the plain e2e embedding, the layer-stack kernel
-over all layers with the last thinned, the plain e2e head.  A width neither
-kernel can hold raises ``ValueError`` before ``nvcc`` starts.
+over all layers with the last thinned, the plain e2e head.  The layer-stack
+kernel takes any T >= 1, head dims 1 to 128 and n_embd a multiple of 8
+(:func:`fused_blocks.check_width`); a width neither kernel can hold raises
+``ValueError`` before ``nvcc`` starts.
 
 - :func:`stack_weights` stacks a model's weights into the kernels' layout:
   bf16 [L, in, out] matrices with the attention scale and log2(e) folded

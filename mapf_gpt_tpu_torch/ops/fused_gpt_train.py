@@ -47,7 +47,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mapf_gpt_tpu_torch.ops.fused_blocks import check_tensor, ln_f32
+from mapf_gpt_tpu_torch.ops.fused_blocks import (check_tensor, ln_f32, pad_heads,
+                                                 padded_head_dim)
 from mapf_gpt_tpu_torch.ops.fused_gpt import jax_index
 
 _EPS = 1e-5
@@ -232,16 +233,32 @@ def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainSt
 
 def check_train_width(t: int, e: int, n_head: int) -> None:
     """Raise ValueError, naming the constraint, unless csrc/fused_train.cu
-    takes T=t, n_embd=e and n_head heads."""
-    if not 1 <= t <= 256:
-        raise ValueError(f"fused_train: T must be 1..256; got {t}")
+    takes T=t, n_embd=e and n_head heads: any T >= 1, n_embd a multiple of 8
+    (the GEMM's 16-byte row strides), head dims up to 128 (the attention
+    tiles' widest; one that is not a multiple of 16 runs padded with zero
+    columns, :func:`fused_blocks.pad_heads`)."""
+    if t < 1:
+        raise ValueError(f"fused_train: T must be at least 1; got {t}")
     if n_head <= 0 or e % n_head:
         raise ValueError(f"fused_train: n_embd {e} is not a multiple of n_head {n_head}")
-    if e % 32:
-        raise ValueError(f"fused_train: n_embd must be a multiple of 32; got {e}")
+    if e % 8:
+        raise ValueError(f"fused_train: n_embd must be a multiple of 8; got {e}")
     dh = e // n_head
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"fused_train: head dim must be a multiple of 16 up to 128; got {dh}")
+    if dh > 128:
+        raise ValueError(f"fused_train: head dim must be from 1 up to 128; got {dh}")
+
+
+def _unpad_heads(dwqkv: torch.Tensor, dwproj: torch.Tensor, n_head: int):
+    """The gradients of :func:`fused_blocks.pad_heads`' padded stacks back in
+    the stacks' shapes: the zero columns and rows dropped."""
+    layers, e, _ = dwqkv.shape
+    dh = e // n_head
+    dp = padded_head_dim(dh)
+    if dp == dh:
+        return dwqkv, dwproj
+    dwqkv = dwqkv.reshape(layers, e, 3, n_head, dp)[..., :dh].reshape(layers, e, 3 * e)
+    dwproj = dwproj.reshape(layers, n_head, dp, e)[:, :, :dh].reshape(layers, e, e)
+    return dwqkv.contiguous(), dwproj.contiguous()
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -253,6 +270,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_train_forward.restype = i
     lib.fused_train_backward.argtypes = [p] * 16 + [i] * 6 + [p]
     lib.fused_train_backward.restype = i
+    lib.fused_train_gemm.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.fused_train_gemm.restype = i
     lib.fused_train_error_string.argtypes = [i]
     lib.fused_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -319,9 +338,10 @@ def train_forward(x: torch.Tensor, stacks: TrainStacks, last_only: bool):
     group = min(n, GROUP)
     ws = _workspace(lib, 0, group, t, e, stacks.n_head, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    weights = (*pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head), *stacks[2:6])
     with torch.cuda.device(dev):
         rc = lib.fused_train_forward(
-            x.data_ptr(), out.data_ptr(), xsave.data_ptr(), *(s.data_ptr() for s in stacks[:6]),
+            x.data_ptr(), out.data_ptr(), xsave.data_ptr(), *(w.data_ptr() for w in weights),
             ws.data_ptr(), n, t, e, stacks.n_head, layers, int(last_only), group, stream)
     _raise_on(lib, rc, "forward")
     fwd_launches += 1
@@ -347,20 +367,47 @@ def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks)
     check_tensor("fused_train", "dxin", dxin, torch.bfloat16, (n, t, e), dev)
     lib = _library()
     dx = torch.empty((n, t, e), dtype=torch.bfloat16, device=dev)
-    grads = tuple(torch.zeros(s.shape, dtype=torch.float32, device=dev) for s in stacks[:6])
+    weights = (*pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head), *stacks[2:6])
+    grads = tuple(torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in weights)
     if n == 0:
-        return dx, grads
+        return dx, (*_unpad_heads(*grads[:2], stacks.n_head), *grads[2:])
     group = min(n, GROUP)
     ws = _workspace(lib, 1, group, t, e, stacks.n_head, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_train_backward(
-            xsave.data_ptr(), dxin.data_ptr(), *(s.data_ptr() for s in stacks[:6]),
+            xsave.data_ptr(), dxin.data_ptr(), *(w.data_ptr() for w in weights),
             dx.data_ptr(), *(g.data_ptr() for g in grads), ws.data_ptr(), n, t, e,
             stacks.n_head, layers, group, stream)
     _raise_on(lib, rc, "backward")
     bwd_launches += 1
-    return dx, grads
+    return dx, (*_unpad_heads(*grads[:2], stacks.n_head), *grads[2:])
+
+
+def gemm_tile(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_k: bool = False,
+              splits: int = 0) -> torch.Tensor:
+    """The layer kernels' shared GEMM (``csrc/gemm_tile.cuh``) alone, for its
+    checks and its timing beside cuBLAS; on no path of the port.  bf16 CUDA
+    tensors a, stored [M, K] or, with a_mn, [K, M], and b, stored [K, N] or,
+    with b_k, [N, K] -> op(a) op(b) [M, N] in bf16, or, with splits > 0, the
+    fp32 partial products of the K range split that many ways [splits, M,
+    N] (their sum is the product)."""
+    m, k = a.shape[::-1] if a_mn else a.shape
+    n = b.shape[0] if b_k else b.shape[1]
+    for name, ten in (("a", a), ("b", b)):
+        if ten.dtype != torch.bfloat16 or ten.device.type != "cuda" or not ten.is_contiguous():
+            raise ValueError(f"gemm_tile: {name} must be a contiguous bf16 CUDA tensor")
+    if (b.shape[1] if b_k else b.shape[0]) != k:
+        raise ValueError(f"gemm_tile: depths differ, {tuple(a.shape)} and {tuple(b.shape)}")
+    out = torch.empty((splits, m, n) if splits else (m, n),
+                      dtype=torch.float32 if splits else torch.bfloat16, device=a.device)
+    lib = _library()
+    with torch.cuda.device(a.device):
+        rc = lib.fused_train_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(a_mn),
+                                  int(b_k), int(splits > 0), max(splits, 1),
+                                  torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(lib, rc, "gemm")
+    return out
 
 
 class FusedBlocksTrain(torch.autograd.Function):

@@ -60,14 +60,30 @@ def test_library_is_keyed_by_included_headers(csrc):
 
 
 def test_kernel_sources_name_the_shared_attention_header():
-    """attention.cu, fused_train.cu and fused_gpt.cu share csrc/attn_tile.cuh,
-    and fused_gpt.cu includes csrc/wgmma.cuh too; each library's key follows
+    """attention.cu, fused_train.cu, fused_gpt.cu and fused_blocks.cu share
+    csrc/attn_tile.cuh; fused_gpt.cu includes csrc/wgmma.cuh, the layer
+    kernels reach it through csrc/gemm_tile.cuh; each library's key follows
     the headers its source includes."""
-    for name in ("attention", "fused_train"):
-        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "attn_tile.cuh"]
+    assert [p.name for p in _build.source_files("attention")] == ["attention.cu", "attn_tile.cuh"]
     assert [p.name for p in _build.source_files("fused_gpt")] == [
         "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
-    assert [p.name for p in _build.source_files("fused_blocks")] == ["fused_blocks.cu"]
+    for name in ("fused_train", "fused_blocks"):
+        assert [p.name for p in _build.source_files(name)] == [
+            f"{name}.cu", "attn_tile.cuh", "gemm_tile.cuh", "wgmma.cuh"]
+
+
+def test_layer_kernels_share_the_hopper_gemm():
+    """fused_blocks.cu and fused_train.cu run every product through
+    csrc/gemm_tile.cuh (TMA into shared memory, wgmma.mma_async), with no
+    WMMA GEMM of their own and no library GEMM."""
+    tile = (_build.CSRC / "gemm_tile.cuh").read_text()
+    assert "cp.async.bulk.tensor" in tile and "setmaxnreg" in tile
+    assert "wgmma.mma_async" in (_build.CSRC / "wgmma.cuh").read_text()
+    for name in ("fused_blocks", "fused_train"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "gemm_tile.cuh"' in src and "gemm::run<" in src
+        for banned in ("wmma::", "<mma.h>", "cublas_v2.h", "cublasGemm", "cublasLt", "cutlass::"):
+            assert banned not in src, (name, banned)
 
 
 def test_build_once_then_reuse(csrc, tmp_path, monkeypatch):

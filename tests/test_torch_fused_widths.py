@@ -5,10 +5,11 @@ ids, without a CUDA toolkit:
   runs it on CUDA for (160, 5), (256, 8), (768, 12), (192, 6), (384, 6),
   (512, 8), (320, 10), (160, 10), (256, 16), (144, 9), (384, 4) and (512, 32),
   and ``e2e_unfit`` holds the e2e kernel's shape rules, without building
-  anything; a shape neither kernel can hold (n_embd not a multiple of 32, a
-  head dim not a multiple of 16, too many heads for the thin attention's
-  shared memory, T outside 1..256, or T != 256 past the e2e kernel's width)
-  raises ``ValueError`` naming the constraint, before ``nvcc`` would start;
+  anything; a shape the e2e kernel cannot take (head dims 8 or 16 past
+  its width, n_embd 336 or 4096, T past 256) is planned on the layer-stack
+  kernel, still without a build, and a shape neither kernel can hold
+  (n_embd not a multiple of 8, a head dim past 128, T below 1) raises
+  ``ValueError`` naming the constraint, before ``nvcc`` would start;
 - ``_build`` passes a caller's defines to ``nvcc`` and keys the library by
   them (a stand-in ``nvcc`` plays the compiler);
 - the e2e route run as three steps (the plain bf16 embedding,
@@ -86,18 +87,26 @@ def test_e2e_chunk_reproduces_the_published_builds():
 
 
 @pytest.mark.parametrize("e,h,t,match", [
-    (336, 21, 256, "multiple of 32"),              # head dim 16, n_embd % 32 != 0, past 256
-    (192, 24, 256, "head dim must be a multiple of 16"),   # head dim 8
-    (4096, 256, 256, "thin attention"),            # 256 heads' scores over 227 KB
-    (250, 5, 256, "head dim"),
-    (160, 5, 300, "T=300 is outside 1..256"),      # past the e2e kernel's T
-    (320, 10, 200, "T must be 256"),               # past the e2e kernel's width, T != 256
+    # lifted: each is planned on the layer-stack kernel without a build
+    (336, 21, 256, None),              # head dim 16, n_embd % 32 != 0, past 256
+    (192, 24, 256, None),              # head dim 8: each head padded to 16 columns
+    (4096, 256, 256, None),            # 256 heads: the thin attention streams its keys
+    (160, 5, 300, None),               # past the e2e kernel's T
+    (320, 10, 200, None),              # past the e2e kernel's width, T != 256
+    # still refused
+    (250, 5, 256, "multiple of 8"),    # TMA's 16-byte row strides
+    (196, 7, 256, "multiple of 8"),
+    (1032, 4, 256, "head dim must be at most 128"),
+    (160, 5, 0, "T must be at least 1"),
 ])
 def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, t, match):
     monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
     monkeypatch.setattr(_build, "find_nvcc", lambda: pytest.fail("looked for nvcc"))
-    with pytest.raises(ValueError, match=match):
-        fused_gpt.cuda_plan(e, h, 4, t)
+    if match is None:
+        assert fused_gpt.cuda_plan(e, h, 4, t)[1] == "fused_blocks"
+    else:
+        with pytest.raises(ValueError, match=match):
+            fused_gpt.cuda_plan(e, h, 4, t)
     if t == 256:
         with pytest.raises(ValueError):
             fused_gpt.e2e_defines(e, h)
@@ -106,12 +115,18 @@ def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, t, match):
 def test_blocks_width_checks():
     fused_blocks.check_width(256, 384, 6)
     fused_blocks.check_width(256, 1024, 32)
-    fused_blocks.check_width(256, 1536, 48)   # 48 KB of scores: dynamic shared memory
+    fused_blocks.check_width(256, 1536, 48)
     fused_blocks.check_width(256, 2048, 128)
-    with pytest.raises(ValueError, match="T must be 256"):
-        fused_blocks.check_width(128, 768, 12)
-    with pytest.raises(ValueError, match="thin attention"):
-        fused_blocks.check_width(256, 3584, 224)
+    fused_blocks.check_width(128, 768, 12)     # any T
+    fused_blocks.check_width(1, 768, 12)
+    fused_blocks.check_width(256, 3584, 224)   # no shared-memory bound on the heads
+    fused_blocks.check_width(200, 200, 25)     # head dim 8, n_embd 200
+    with pytest.raises(ValueError, match="T must be at least 1"):
+        fused_blocks.check_width(0, 768, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_blocks.check_width(256, 770, 10)
+    with pytest.raises(ValueError, match="head dim must be at most 128"):
+        fused_blocks.check_width(256, 1040, 4)
 
 
 def test_build_passes_defines_and_keys_the_library(tmp_path, monkeypatch):
