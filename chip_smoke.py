@@ -5,9 +5,9 @@
 
 Drives the port's main path, the batched rollout, for each published model
 (2M, 6M, 85M) and for a ``bias=True`` model on the module route through
-the attention kernel, and the 6M trainer, through the entry points a user
-calls, and holds every CUDA kernel of those paths against its plain
-PyTorch version.  Phases, one line each (flushed); phase 12 runs right
+the attention kernel, the 6M trainer, and the suite evaluator (one-shot
+and lifelong episodes) through the entry points a user calls, and holds
+every CUDA kernel of those paths against its plain PyTorch version.  Phases, one line each (flushed); phase 12 runs right
 after phase 2, so that a faulty attention kernel fails within seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
@@ -59,7 +59,10 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    shapes its lifted limits admit (``BLOCK_SHAPES``: the 85M's width at T
    = 200, head dims 8 and 24, n_embd 336 with 21 heads, and 256 heads of
    head dim 8 at n_embd 2048, whose thin attention was past the shared
-   memory before), both ways of ``last_only``; a 4 x 32 x 32
+   memory before), and the widths the padded layouts admit (n_embd 250 with 5
+   heads, stored padded to 256 with LayerNorm over 250; n_embd 1032 with
+   4 heads of 258 columns, run in three slabs of 96), both ways of
+   ``last_only``, the repaired widths' stacks timed at 256 contexts; a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
    counter 0; timing at 2048 contexts (the JAX harness's 85M cap) and the
    stack's device time by kernel (``torch.profiler``).
@@ -87,8 +90,10 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    dim 96 (E=384, 4 heads), T=200 (the 6M's width), head dim 8 with
    n_embd 200 at T = 300 (heads padded to 16 columns, T past 256), and
    head dim 128 at T = 300 (the attention backward's key and query windows
-   reloaded in turn) on a 2-layer forward and a 1-layer backward chunk
-   each; a second backward launch must equal the first bit for bit.
+   reloaded in turn), and the repaired widths (n_embd 250 with 5 heads;
+   n_embd 1032 with 4 heads at T = 256 and 300) on a 2-layer forward and a
+   1-layer backward chunk each, the repaired ones timed at T = 256; a
+   second backward launch must equal the first bit for bit.
 10. The trainer through its entry point: ``train.loop.train`` with
    ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
    eval every 10, on shards written here with ``write_arrow_shard``: the
@@ -105,7 +110,7 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    the backward's device time by kernel (``torch.profiler``); the
    trainer's it/s and MFU.
 12. The attention kernel (``csrc/attention.cu``, for ``attn_impl="pallas"``)
-   against its plain version ``attention_einsum``, fp32 and bf16, at
+   against its plain version ``attention_einsum``, fp32, bf16 and fp16, at
    [B, H, T, D] = [64, 5, 256, 32] (2M-like), [32, 8, 256, 32] (6M-like),
    [16, 12, 256, 64] (85M-like), [1, 3, 256, 32] (3 pairs), [4, 10, 256,
    16] (D=16), [4, 4, 256, 128] (D=128), [4, 5, 200, 32] (a masked T),
@@ -114,7 +119,7 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    72 (zero columns in bf16), and the 6M-like shape and a D=24 shape as the
    module's strided views of a q|k|v product:
    fp32 within rtol = atol = 1e-4 (``tests/test_attention.py``), bf16
-   within 0.01 * max|ref| + 1e-3.
+   and fp16 within 0.01 * max|ref| + 1e-3.
 13. The module route at full width: the trained 6M with
    ``attn_impl="pallas"`` through ``make_forward(model, use_fused=False)``
    on phase 6's 512 contexts against the same model with "einsum", phase
@@ -131,9 +136,23 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    at 256 envs x 32 agents) and [2048, 12, 256, 64] (the 85M at the
    harness cap), bf16: the kernel, its plain version (in chunks), one
    ``scaled_dot_product_attention`` call (a yardstick, never on the port's
-   path) and the bound.
+   path) and the bound; the kernel and the library call again in fp16.
+16. The suite evaluator (``eval/harness.Evaluator``) with the trained 2M,
+   argmax, on maps registered from ``random_grid``, ``maze_grid`` and
+   ``warehouse_grid``: 16 one-shot specs of 64 steps (CSR, ISR, SoC,
+   makespan and ep_length held to their invariants; the e2e kernel once a
+   step and chunk); 4 lifelong warehouse specs (64 agents, K = 16, 64
+   steps) with lazy and with dense cost2go, whose rows must be equal but
+   for ``runtime``, with ``avg_throughput`` above 0; a lazy lifelong
+   step split into tokenizer, forward, act and env step (CUDA events),
+   ``relax_fixpoint`` timed alone beside its row-loop plain version
+   (``relax_fixpoint_rows``, the JAX ``lax.scan``'s form; equal); the bench
+   workload's step (256 envs x 32 agents) split the same way; and one
+   ``make_recorded_rollout`` with ``mask_greed_action`` on.  About 5 s.
 
-Then the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+Then an ``[evaluator]`` line with phase 16's numbers, the card's name and
+power limit, the kernels' JSON line and, last, ``{"ok": true, "device":
+{...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
 so it does without a GPU, and outside a checkout of the repository.
 """
@@ -158,7 +177,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from mapf_gpt_tpu_torch.envs import env as menv  # noqa: E402
-from mapf_gpt_tpu_torch.maps import random_grid, sample_instance  # noqa: E402
+from mapf_gpt_tpu_torch.eval.harness import EpisodeSpec, Evaluator  # noqa: E402
+from mapf_gpt_tpu_torch.maps import (MapRegistry, maze_grid, random_grid,  # noqa: E402
+                                     sample_instance, warehouse_grid)
 from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
                                                load_reference_checkpoint)
 from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPTConfig, act,  # noqa: E402
@@ -166,8 +187,12 @@ from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPTConfig, act,  # noqa: E40
 from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
 from mapf_gpt_tpu_torch.ops import attention as tatt  # noqa: E402
 from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt  # noqa: E402
+from mapf_gpt_tpu_torch.ops.cost2go import (INF, relax_fixpoint,  # noqa: E402
+                                            relax_fixpoint_rows)
+from mapf_gpt_tpu_torch.ops.masking import MaskConfig  # noqa: E402
 from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
-                                                 batch_reset, make_batch_rollout)
+                                                 batch_reset, make_batch_rollout,
+                                                 make_recorded_rollout)
 from mapf_gpt_tpu_torch.train import loop as train_loop  # noqa: E402
 from mapf_gpt_tpu_torch.train.data import write_arrow_shard  # noqa: E402
 from mapf_gpt_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
@@ -203,14 +228,22 @@ N_TRAIN_CMP = {"2M": 512, "6M": 300, "85M": 64}
 TRAIN_WIDTHS = {"85M width": (768, 12, 256), "head dim 16": (256, 16, 256),   # (E, heads, T)
                 "head dim 96": (384, 4, 256), "T 200": (256, 8, 200),
                 "head dim 8, n_embd 200, T 300": (200, 25, 300),
-                "head dim 128, T 300": (256, 2, 300)}
+                "head dim 128, T 300": (256, 2, 300),
+                # repaired: n_embd not a multiple of 8 (stored padded to 256), and a head
+                # dim past 128 (258: three slabs of 96 columns), at T = 256 and 300
+                "n_embd 250, 5 heads": (250, 5, 256), "n_embd 1032, 4 heads": (1032, 4, 256),
+                "n_embd 1032, 4 heads, T 300": (1032, 4, 300)}
 # the layer-stack kernel past its old limits, (n_embd, heads, layers, T): the 85M's
 # width at T = 200, head dims 8 and 24 (padded to 16 and 32 columns), n_embd 336 with
 # 21 heads, and 256 heads of head dim 8, whose thin attention's H x T scores were
 # past a block's shared memory
 BLOCK_SHAPES = ((768, 12, 2, 200), (96, 12, 2, 200), (96, 4, 2, 200), (336, 21, 2, 200),
-                (2048, 256, 1, 256))
+                (2048, 256, 1, 256),
+                # repaired: n_embd 250 (stored padded to 256, LayerNorm over 250) and head
+                # dim 258 (three slabs of 96 columns)
+                (250, 5, 2, 256), (1032, 4, 2, 256), (1032, 4, 1, 200))
 N_BLOCK_SHAPES = 40              # contexts of each shape's compare (4 at n_embd 2048)
+N_REPAIRED_TIME = 256            # contexts of the repaired widths' timings (one group)
 # the shared GEMM's compares, (M, N, K): ragged tails on every side, N of one and
 # of several output tiles, K of one k-tile and of many
 GEMM_SHAPES = ((200, 136, 72), (256, 256, 128), (1000, 600, 304), (64, 8, 16),
@@ -228,6 +261,14 @@ ATT_SHAPES = ((64, 5, 256, 32), (32, 8, 256, 32), (16, 12, 256, 64), (1, 3, 256,
 ATT_STRIDED = ((32, 8, 256, 32), (8, 5, 256, 24))   # also as views of a q|k|v product
 ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}   # [B, H, T, D] timed
 ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
+# the evaluator phase: one-shot specs (map, agents, seeds) of EVAL_STEPS steps, and
+# lifelong specs on the warehouse map, K = EVAL_K queued goals
+EVAL_ONE_SHOT = (("random-21", 16, 4), ("maze-21", 16, 4), ("random-21", 32, 4),
+                 ("maze-21", 32, 4))
+EVAL_STEPS, EVAL_BATCH = 64, 8
+EVAL_LIFELONG = ("warehouse", 64, 4)
+EVAL_K, EVAL_LIFELONG_STEPS = 16, 64
+SPLIT_STEPS = 8                  # steps of the bench shape's split (256 envs x 32 agents)
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -484,10 +525,18 @@ def e2e_shapes_phase(seed: int, dev) -> float:
     return err
 
 
+def repaired(e: int, h: int) -> bool:
+    """A width the layer kernels take only through their padded layouts:
+    n_embd not a multiple of 8, or a head dim past 128."""
+    return e % 8 != 0 or e // h > 128
+
+
 def block_shapes_phase(seed: int, dev) -> float:
     """The layer-stack kernel alone at BLOCK_SHAPES, random weights from
     init_params, both ways of last_only, against blocks_reference (stream
-    within atol 0.02 * max|ref|).  Returns the largest max |err|."""
+    within atol 0.02 * max|ref|); the repaired widths' stacks then timed
+    at N_REPAIRED_TIME contexts beside the plain version and the bound.
+    Returns the largest max |err|."""
     err = 0.0
     for e, h, layers, t in BLOCK_SHAPES:
         cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
@@ -504,6 +553,16 @@ def block_shapes_phase(seed: int, dev) -> float:
                 f"blocks E={e} H={h} (head dim {e // h}) L={layers} T={t} last_only={last_only}, "
                 "stream", got, fused_blocks.blocks_reference(x, w.stacks(), last_only),
                 floor=0.0, argmax=False))
+        if repaired(e, h) and t == 256:
+            tokens = random_tokens(seed + e, N_REPAIRED_TIME, cfg, dev)
+            x = (w.wte32[tokens.long()] + w.wpe32).to(torch.bfloat16)
+            ms = cuda_ms(lambda: fused_blocks.fused_blocks(x, w.stacks(), False), reps=3)
+            plain_ms = cuda_ms(lambda: [fused_blocks.blocks_reference(c, w.stacks(), False)
+                                        for c in x.split(64)], reps=1)
+            bound_ms, bound_by = blocks_bound(N_REPAIRED_TIME, w.stacks(), t, last_only=False)
+            log(f"[timing] blocks E={e} H={h} L={layers} T={t} N={N_REPAIRED_TIME}: kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.2f} % of bound")
     return err
 
 
@@ -734,6 +793,22 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
         err, _ = compare_backward(f"{label} train backward layer 1", xsave[2:4].contiguous(),
                                   dxin, stacks.chunk(1, 2))
         bwd_err = max(bwd_err, err)
+        if repaired(e, h) and t == 256:
+            xs, top = xsave[2:4].contiguous(), stacks.chunk(1, 2)
+            fwd_ms = cuda_ms(lambda: fgt.train_forward(x, stacks, last_only=False), reps=3)
+            bwd_ms = cuda_ms(lambda: fgt.train_backward(xs, dxin, top), reps=3)
+            plain_fwd = cuda_ms(lambda: fgt.train_fwd_reference(x, stacks, False), reps=1)
+            plain_bwd = cuda_ms(lambda: fgt.train_bwd_reference(xs, dxin, top), reps=1)
+            stream = n * t * e * 2
+            ops, exps = train_ops(t, e, h, 2, False, False)
+            fwd_bound = bound(n * ops, n * exps, 6 * stream + nbytes(*stacks[:6]))
+            ops, exps = train_ops(t, e, h, 1, False, True)
+            bwd_bound = bound(n * ops, n * exps,
+                              4 * stream + nbytes(*top[:6]) + sum(4 * g.numel() for g in top[:6]))
+            log(f"[timing] {label} train N={n} T={t}: forward (2 layers) {fwd_ms:.3f} ms (plain "
+                f"{plain_fwd:.3f} ms, bound {fwd_bound[0]:.3f} ms {fwd_bound[1]}), backward (1 "
+                f"layer) {bwd_ms:.3f} ms (plain {plain_bwd:.3f} ms, bound {bwd_bound[0]:.3f} ms "
+                f"{bwd_bound[1]})")
     return fwd_err, bwd_err
 
 
@@ -905,7 +980,7 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
          "launches": trainer["launches"][1], "max_abs_err": bwd_err, "ms": bwd_ms,
          "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
          "calls": len(chunks),
-         "attention_kernels_ms": {name.split("<")[0].split("(")[0]: ms_k
+         "attention_kernels_ms": {profiling.kernel_key(name): ms_k
                                   for ms_k, _, name in split if "attn" in name}},
     ]
 
@@ -938,7 +1013,7 @@ def attention_phase(seed: int, dev) -> float:
     for shape in ATT_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
         scale = 1.0 / math.sqrt(shape[-1])
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = [t.to(dtype) for t in (q, k, v)]
             got = tatt.attention_pallas(*x, scale)
             torch.cuda.synchronize()
@@ -946,7 +1021,7 @@ def attention_phase(seed: int, dev) -> float:
                                            tatt.attention_einsum(*x, scale)))
     for b, h, t, d in ATT_STRIDED:
         qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = [z.reshape(b, t, h, d).transpose(1, 2) for z in qkv.to(dtype).split(h * d, dim=-1)]
             got = tatt.attention_pallas(*x, 1.0 / math.sqrt(d))
             torch.cuda.synchronize()
@@ -1018,17 +1093,206 @@ def attention_timing(seed: int, dev, launches: int, max_err: float) -> dict:
                                     for i in range(0, b, chunk)], reps=1)
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, scale=scale), reps=5)
+        qh, kh, vh = (z.half() for z in (q, k, v))
+        fp16_ms = cuda_ms(lambda: tatt.attention_pallas(qh, kh, vh, scale), reps=5)
+        sdpa16_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), reps=5)
         n = b * h
         bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
         log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] bf16: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+        log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] fp16: kernel {fp16_ms:.3f} ms, "
+            f"scaled_dot_product_attention {sdpa16_ms:.3f} ms")
         rows[label] = {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms}
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms,
+                       "fp16_ms": fp16_ms, "fp16_library_ms": sdpa16_ms}
     return {"name": "attention", "model": "bias=True 6M width, attn_impl=pallas",
             "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/attention.cu",
             "replaces": "mapf_gpt_tpu/ops/attention.py:37", "launches": launches,
             "max_abs_err": max_err, **rows["2M"], "at_85m_shape": rows["85M"]}
+
+
+def check_rows(label: str, rows: list, steps: int, lifelong: bool) -> None:
+    """The evaluator's rows against the metrics' invariants."""
+    for r in rows:
+        a = r["num_agents"]
+        bad = [not 0.0 <= r["ISR"] <= 1.0, r["CSR"] not in (0.0, 1.0),
+               r["CSR"] == 1.0 and r["ISR"] != 1.0, not 0.0 <= r["makespan"] <= steps,
+               not r["makespan"] <= r["SoC"] <= a * steps, not r["runtime"] > 0,
+               not 0 < r["ep_length"] <= steps, not r["avg_agents_density"] > 0]
+        if lifelong:
+            bad += [r["ep_length"] != steps, not r["avg_throughput"] >= 0.0]
+        else:
+            bad += [r["ep_length"] < steps and r["CSR"] != 1.0, r["avg_throughput"] != 0.0]
+        if any(bad):
+            raise RuntimeError(f"evaluator {label}: a row breaks the metrics' invariants: {r}")
+
+
+def step_split(model, states, spec, reps: int) -> dict:
+    """Device-timeline ms of one rollout step's parts (tokenizer, policy
+    forward, act, env step), CUDA events between the parts, averaged over
+    `reps` steps."""
+    forward = make_forward(model)
+    b, a = states.pos.shape[:2]
+    names = ("tokens", "forward", "act", "env_step")
+    total = dict.fromkeys(names, 0.0)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        tokens = _tokens_of(states).reshape(b * a, -1)
+        ev[1].record()
+        logits = forward(tokens)
+        ev[2].record()
+        actions = act(logits, do_sample=False)
+        ev[3].record()
+        states = menv.step(spec, states, actions.reshape(b, a))
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            total[n] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return total
+
+
+def evaluator_phase(model, seed: int, dev) -> dict:
+    """16. The suite evaluator on CUDA with the trained 2M, argmax: one-shot
+    specs on procedural random and maze maps, lifelong specs on the
+    warehouse map (K = EVAL_K, lazy and dense cost2go, rows equal), the e2e
+    kernel's launches one per step and chunk; the lazy step split into its
+    parts with relax_fixpoint timed beside its row-loop plain version; the
+    bench workload's step split; and one recorded rollout with an input
+    mask."""
+    t0 = time.perf_counter()
+    reg = MapRegistry()
+    reg.register("random-21", random_grid(21, DENSITY, seed))
+    reg.register("maze-21", maze_grid(21, seed))
+    reg.register("warehouse", warehouse_grid())
+    out = {}
+
+    ev = Evaluator(reg, model, batch_envs=EVAL_BATCH, do_sample=False, device=dev)
+    specs = [EpisodeSpec(m, a, s, max_episode_steps=EVAL_STEPS) for m, a, n in EVAL_ONE_SHOT
+             for s in range(seed, seed + n)]
+    chunks = sum(-(-sum(1 for s in specs if ev._group_key(s) == key) // EVAL_BATCH)
+                 for key in {ev._group_key(s) for s in specs})
+    fused_gpt.launches = fused_blocks.launches = tatt.launches = 0
+    rows = ev.run(specs).rows
+    torch.cuda.synchronize()
+    launches = (fused_gpt.launches, fused_blocks.launches, tatt.launches)
+    log(f"[evaluator] one-shot: {len(rows)} episodes in {chunks} chunks, kernel launches e2e "
+        f"{launches[0]} blocks {launches[1]} attention {launches[2]}")
+    if launches != (chunks * EVAL_STEPS, 0, 0) or len(rows) != len(specs):
+        raise RuntimeError(f"evaluator one-shot: launches {launches}, expected "
+                           f"{(chunks * EVAL_STEPS, 0, 0)}")
+    check_rows("one-shot", rows, EVAL_STEPS, lifelong=False)
+    for r in rows:
+        log(f"[evaluator]   {r['map_name']} A={r['num_agents']} seed {r['seed']}: CSR {r['CSR']} "
+            f"ISR {r['ISR']:.4f} SoC {r['SoC']} makespan {r['makespan']} ep_length "
+            f"{r['ep_length']} runtime {r['runtime']:.4f} s")
+    out["one_shot"] = {"episodes": len(rows), "e2e_launches": launches[0],
+                       "CSR": float(np.mean([r["CSR"] for r in rows])),
+                       "ISR": float(np.mean([r["ISR"] for r in rows])),
+                       "runtime_s_per_episode": float(np.mean([r["runtime"] for r in rows]))}
+
+    name, agents, n = EVAL_LIFELONG
+    lspecs = [EpisodeSpec(name, agents, s, max_episode_steps=EVAL_LIFELONG_STEPS,
+                          on_target="restart", num_queued_goals=EVAL_K)
+              for s in range(seed, seed + n)]
+    lrows = {}
+    for lazy in (True, False):
+        lev = Evaluator(reg, model, batch_envs=EVAL_BATCH, do_sample=False, lazy_lifelong=lazy,
+                        device=dev)
+        fused_gpt.launches = 0
+        lrows[lazy] = lev.run(lspecs).rows
+        torch.cuda.synchronize()
+        if fused_gpt.launches != EVAL_LIFELONG_STEPS:
+            raise RuntimeError(f"evaluator lifelong: {fused_gpt.launches} e2e launches, "
+                               f"expected {EVAL_LIFELONG_STEPS}")
+        check_rows(f"lifelong lazy={lazy}", lrows[lazy], EVAL_LIFELONG_STEPS, lifelong=True)
+        for r in lrows[lazy]:
+            log(f"[evaluator]   lifelong lazy={lazy} {r['map_name']} A={r['num_agents']} K="
+                f"{EVAL_K} seed {r['seed']}: avg_throughput {r['avg_throughput']:.6f} ISR "
+                f"{r['ISR']:.4f} runtime {r['runtime']:.4f} s")
+    strip = [[{k: v for k, v in r.items() if k != "runtime"} for r in lrows[lazy]]
+             for lazy in (True, False)]
+    if strip[0] != strip[1]:
+        raise RuntimeError("evaluator lifelong: the lazy rows differ from the dense rows")
+    throughput = float(np.mean([r["avg_throughput"] for r in lrows[True]]))
+    if not throughput > 0:
+        raise RuntimeError("evaluator lifelong: avg_throughput is 0")
+    log(f"[evaluator] lifelong: lazy rows equal dense rows (runtime aside); mean avg_throughput "
+        f"{throughput:.6f}; runtime a episode lazy "
+        f"{np.mean([r['runtime'] for r in lrows[True]]):.4f} s, dense "
+        f"{np.mean([r['runtime'] for r in lrows[False]]):.4f} s")
+    out["lifelong"] = {"episodes": len(lspecs), "K": EVAL_K, "avg_throughput": throughput,
+                       "runtime_s_per_episode_lazy": float(np.mean([r["runtime"]
+                                                                    for r in lrows[True]])),
+                       "runtime_s_per_episode_dense": float(np.mean([r["runtime"]
+                                                                     for r in lrows[False]]))}
+
+    # the lazy lifelong step split: tokenizer, forward, act, env step (the
+    # relaxation inside it), then relax_fixpoint alone on the step's fields
+    # (one verification round) beside its row-loop plain version
+    lev = Evaluator(reg, model, batch_envs=EVAL_BATCH, do_sample=False, device=dev)
+    key = lev._group_key(lspecs[0])
+    spec, _ = lev._runner(key, key[2])
+    built = [lev._build_instance(s, key[:2], key[2]) for s in lspecs]
+    states = batch_reset(spec, *(np.stack([b[i] for b in built]) for i in range(4)), device=dev)
+    forward = make_forward(model)
+    for _ in range(8):              # into the episode, so that queues have advanced
+        b, a = states.pos.shape[:2]
+        states = menv.step(spec, states, act(forward(_tokens_of(states).reshape(b * a, -1)),
+                                             do_sample=False).reshape(b, a))
+    split = step_split(model, states, spec, reps=4)
+    h, w = states.grid.shape[-2:]
+    fields = states.c2g[:, :, 0].reshape(-1, h, w)
+    seed_d = torch.where(fields < 0, INF, fields)
+    free = (~states.grid)[:, None].expand(*states.pos.shape[:2], h, w).reshape(-1, h, w)
+    if not torch.equal(relax_fixpoint(seed_d, free), relax_fixpoint_rows(seed_d, free)):
+        raise RuntimeError("relax_fixpoint differs from the row loop on the lifelong fields")
+    relax_ms = cuda_ms(lambda: relax_fixpoint(seed_d, free), reps=5)
+    rows_ms = cuda_ms(lambda: relax_fixpoint_rows(seed_d, free), reps=2)
+    log(f"[timing] lifelong lazy step, {len(lspecs)} envs x {agents} agents on the {h} x {w} "
+        f"warehouse tier: tokens {split['tokens']:.3f} ms, forward {split['forward']:.3f} ms, "
+        f"act {split['act']:.3f} ms, env step {split['env_step']:.3f} ms (its relaxation "
+        f"inside); relax_fixpoint alone {relax_ms:.3f} ms (one round), its row-loop plain "
+        f"version relax_fixpoint_rows {rows_ms:.3f} ms")
+    out["lifelong_step_ms"] = {**split, "relax_fixpoint": relax_ms, "relax_row_loop": rows_ms,
+                               "fields": int(seed_d.shape[0]), "grid": [int(h), int(w)]}
+
+    # the bench workload's step split: 256 envs x 32 agents on 21 x 21 random maps
+    insts = [sample_instance(random_grid(MAP_SIZE, DENSITY, s), A, seed=s) for s in range(256)]
+    bspec = menv.MapfEnvSpec(height=insts[0].grid.shape[0], width=insts[0].grid.shape[1],
+                             num_agents=A, max_episode_steps=SPLIT_STEPS + 1)
+    bstates = batch_reset(bspec, np.stack([i.grid for i in insts]),
+                          np.stack([i.starts for i in insts]), np.stack([i.goals for i in insts]),
+                          np.ones((256, A), bool), device=dev)
+    step_split(model, bstates, bspec, reps=1)   # warm
+    bsplit = step_split(model, bstates, bspec, reps=SPLIT_STEPS)
+    log(f"[timing] bench step split, 256 envs x {A} agents: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in bsplit.items()) + f"; {sum(bsplit.values()):.3f} ms a step")
+    out["bench_step_ms"] = bsplit
+
+    # one recorded rollout with an input mask
+    inst = sample_instance(random_grid(MAP_SIZE, DENSITY, seed), A, seed=seed)
+    rspec = menv.MapfEnvSpec(height=inst.grid.shape[0], width=inst.grid.shape[1], num_agents=A,
+                             max_episode_steps=STEPS_85M)
+    rstate = batch_reset(rspec, inst.grid[None], inst.starts[None], inst.goals[None],
+                         np.ones((1, A), bool), device=dev)
+    fused_gpt.launches = 0
+    final, met, positions = make_recorded_rollout(
+        rspec, model, do_sample=False, mask_cfg=MaskConfig(mask_greed_action=True))(rstate)
+    torch.cuda.synchronize()
+    if fused_gpt.launches != STEPS_85M or positions.shape != (STEPS_85M + 1, A, 2):
+        raise RuntimeError(f"recorded rollout: {fused_gpt.launches} e2e launches, positions "
+                           f"{tuple(positions.shape)}")
+    check_rollout(final, met, STEPS_85M)
+    if not torch.equal(positions[-1], final.pos[0]):
+        raise RuntimeError("recorded rollout: the trajectory does not end at the final state")
+    log(f"[evaluator] recorded rollout, mask_greed_action: {STEPS_85M} steps, ISR "
+        f"{met.isr.item():.4f}, e2e launches {fused_gpt.launches}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[done] evaluator phase {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1103,8 +1367,12 @@ def main() -> int:
     module_route_phase(args.seed, dev)
     att_launches, _ = bias_rollout_phase(args.seed, dev)
     entries.append(attention_timing(args.seed, dev, att_launches, att_err))
+
+    # 16. the suite evaluator
+    evaluator = evaluator_phase(model_2m, args.seed, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    log(f"[evaluator] {json.dumps(evaluator)}")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 // Non-causal softmax attention for Hopper (sm_90a): q, k, v [B, H, T, D] ->
-// o [B, H, T, D], bf16 or fp32, any T >= 1; bf16 takes D a multiple of 16 up
-// to 128 (ops/attention.py pads a narrower head with zero columns), fp32
-// any D from 1 to 128.
+// o [B, H, T, D], bf16, fp16 or fp32, any T >= 1; bf16 and fp16 take D a
+// multiple of 16 up to 128 (ops/attention.py pads a narrower head with zero
+// columns), fp32 any D from 1 to 128.
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/attention.py::_attn_kernel (via
 // attention_pallas) and computes what it computes, for each (batch, head)
@@ -26,6 +26,8 @@
 // rounded to bf16 as the A operand of P V, O leaving 16 bytes a lane.
 // Where the TPU kernel holds a whole 256 x 256 fp32 score tile in VMEM
 // (more than a Hopper block's 227 KB), no score here leaves the registers.
+// fp16 runs the same kernel with the fp16 mma.sync and p and o rounded to
+// fp16, as the JAX kernel rounds to the dtype it is given.
 //
 // fp32: FMA on the CUDA cores (TF32 would not hold the JAX tests' 1e-4), the
 // same two passes over the keys: one CTA a (pair, 32 query rows), 8 rows a
@@ -180,12 +182,29 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 size_t f32_smem(int D) { return (size_t)(F_ROWS + 2 * F_KEYS) * (D + 1) * sizeof(float); }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                        int pairs, int H, int T, float scale, cudaStream_t stream) {
-  return attn::launch_fwd<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                             static_cast<const bf16*>(v), static_cast<bf16*>(o), st[0], st[1],
-                             st[2], st[3], pairs, H, T, scale, nullptr, nullptr, stream);
+// The tensor-core kernel for bf16 (T = bf16) or fp16 (T = __half); the
+// tiles move as 16-bit words, so the pointers pass typed bf16.
+template <int D, typename T>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                        int pairs, int H, int T_, float scale, cudaStream_t stream) {
+  return attn::launch_fwd<D, T>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v), static_cast<bf16*>(o), st[0], st[1],
+                                st[2], st[3], pairs, H, T_, scale, nullptr, nullptr, stream);
+}
+
+template <typename T>
+cudaError_t launch_tile_d(const void* q, const void* k, const void* v, void* o, const Strides* st,
+                          int pairs, int H, int T_, int D, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_tile<16, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 32: return launch_tile<32, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 48: return launch_tile<48, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 64: return launch_tile<64, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 80: return launch_tile<80, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 96: return launch_tile<96, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    case 112: return launch_tile<112, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+    default: return launch_tile<128, T>(q, k, v, o, st, pairs, H, T_, scale, stream);
+  }
 }
 
 }  // namespace
@@ -193,7 +212,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
 extern "C" {
 
 // o = softmax(q k^T * scale) v over B x H pairs, on `stream`.  dtype 0:
-// bf16, 1: fp32.  strides: 12 element strides, the (batch, head, position)
+// bf16, 1: fp32, 2: fp16.  strides: 12 element strides, the (batch, head, position)
 // strides of q, k, v and o in that order; the last dim of each is
 // contiguous (ops/attention.py::check_shape and _kernel_ready hold the
 // limits below and, for bf16, the 16-byte alignment).  Returns the CUDA
@@ -202,8 +221,8 @@ extern "C" {
 int attention_forward(int dtype, const void* q, const void* k, const void* v, void* o,
                       const long long* strides, int B, int H, int T, int D, float scale,
                       cudaStream_t stream) {
-  if (B < 0 || H <= 0 || T < 1 || D < 1 || D > D_MAX || (dtype != 0 && dtype != 1) ||
-      (dtype == 0 && D % 16))
+  if (B < 0 || H <= 0 || T < 1 || D < 1 || D > D_MAX || dtype < 0 || dtype > 2 ||
+      (dtype != 1 && D % 16))
     return (int)cudaErrorInvalidValue;
   const int pairs = B * H;
   if (pairs == 0) return 0;
@@ -222,16 +241,8 @@ int attention_forward(int dtype, const void* q, const void* k, const void* v, vo
         D, scale);
     return (int)cudaGetLastError();
   }
-  switch (D) {
-    case 16: return (int)launch_bf16<16>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 32: return (int)launch_bf16<32>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 48: return (int)launch_bf16<48>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 64: return (int)launch_bf16<64>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 80: return (int)launch_bf16<80>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 96: return (int)launch_bf16<96>(q, k, v, o, st, pairs, H, T, scale, stream);
-    case 112: return (int)launch_bf16<112>(q, k, v, o, st, pairs, H, T, scale, stream);
-    default: return (int)launch_bf16<128>(q, k, v, o, st, pairs, H, T, scale, stream);
-  }
+  if (dtype == 2) return (int)launch_tile_d<__half>(q, k, v, o, st, pairs, H, T, D, scale, stream);
+  return (int)launch_tile_d<bf16>(q, k, v, o, st, pairs, H, T, D, scale, stream);
 }
 
 const char* attention_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

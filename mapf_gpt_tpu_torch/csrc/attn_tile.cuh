@@ -45,11 +45,23 @@
 //     bytes a lane, coalesced.
 // q, k, v and o take any (batch, head, position) strides with a contiguous
 // last dim and rows 16-byte aligned; D is a multiple of 16 up to 128 (the
-// callers pad a narrower head with zero columns).
+// callers pad a narrower head with zero columns).  The element type is bf16
+// or, for csrc/attention.cu, fp16 (the template T of the products and of the
+// roundings of p and o; the tiles are copied as 16-bit words either way, so
+// the pointers stay typed bf16).
+//
+// Heads wider than 128 columns (attn_fwd_wide, the training kernels'): the
+// head is padded to DT = NS x DV columns, NS slabs of DV <= 128, and one CTA
+// runs one slab of the output: the scores over all DT columns, with the A
+// fragments read from the warp's rows in shared memory as they are needed
+// (scores_w), then P V for the slab's DV columns of V.  Every slab computes
+// the same scores in the same order, so p and the rows' statistics are the
+// same in each; slab 0 writes the statistics.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,6 +120,32 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// The products and the roundings of an element type: bf16 (above) or fp16.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static __device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0,
+                                             unsigned b1) {
+    attn::mma(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) { return pack_bf16(lo, hi); }
+};
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0,
+                                             unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+};
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -135,12 +173,13 @@ __device__ __forceinline__ void frag_b_kn(unsigned b[4], const bf16* base, int l
   ldsm_x4_t(b, base + ((i & 1) * 8 + (l & 7)) * ld + (i >> 1) * 8);
 }
 
-// The A fragment of 16 keys from the C tiles c[j], c[j + 1], rounded to bf16.
+// The A fragment of 16 keys from the C tiles c[j], c[j + 1], rounded to T.
+template <typename T = bf16>
 __device__ __forceinline__ void c_to_a(unsigned a[4], const float c0[4], const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = Elem<T>::pack(c0[0], c0[1]);
+  a[1] = Elem<T>::pack(c0[2], c0[3]);
+  a[2] = Elem<T>::pack(c1[0], c1[1]);
+  a[3] = Elem<T>::pack(c1[2], c1[3]);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -169,6 +208,33 @@ __device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* src, lon
   }
 }
 
+// The same for a width known at run time (a multiple of 8; rows width + 8 apart).
+__device__ __forceinline__ void stage_rows_async_w(bf16* dst, const bf16* src, long long ld,
+                                                   int r0, int rows, int T, int width, int first,
+                                                   int step) {
+  const int V = width / 8, LD = width + 8;
+  for (int i = first; i < rows * V; i += step) {
+    const int r = i / V, c = (i % V) * 8;
+    bf16* d = dst + r * LD + c;
+    if (r0 + r < T)
+      cp_async16(d, src + (r0 + r) * ld + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The same with plain 16-byte loads, by one warp (no cp.async group).
+__device__ __forceinline__ void stage_rows_warp_w(bf16* dst, const bf16* src, long long ld, int r0,
+                                                  int rows, int T, int width) {
+  const int V = width / 8, LD = width + 8;
+  for (int i = threadIdx.x & 31; i < rows * V; i += 32) {
+    const int r = i / V, c = (i % V) * 8;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (r0 + r < T) u = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = u;
+  }
+}
+
 // The same with plain 16-byte loads, by one warp (no cp.async group).
 template <int D>
 __device__ __forceinline__ void stage_rows_warp(bf16* dst, const bf16* src, long long ld, int r0,
@@ -185,7 +251,7 @@ __device__ __forceinline__ void stage_rows_warp(bf16* dst, const bf16* src, long
 // A warp's 16 x D fp32 accumulators (n8 tiles acc[D / 8]) -> bf16 rows
 // r0.. of dst (rows ld apart, those at or past T skipped), through the
 // warp's stage [16][D + 8]: 4-byte writes to the stage, then 16 bytes a lane.
-template <int D>
+template <int D, typename T_ = bf16>
 __device__ __forceinline__ void store_rows(const float (*acc)[4], bf16* stage, bf16* dst,
                                            long long ld, int r0, int T) {
   constexpr int LD = D + 8, V = D / 8;
@@ -193,9 +259,10 @@ __device__ __forceinline__ void store_rows(const float (*acc)[4], bf16* stage, b
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<unsigned*>(stage + g * LD + n * 8 + 2 * c) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<unsigned*>(stage + g * LD + n * 8 + 2 * c) =
+        Elem<T_>::pack(acc[n][0], acc[n][1]);
     *reinterpret_cast<unsigned*>(stage + (g + 8) * LD + n * 8 + 2 * c) =
-        pack_bf16(acc[n][2], acc[n][3]);
+        Elem<T_>::pack(acc[n][2], acc[n][3]);
   }
   __syncwarp();
   for (int i = lane; i < 16 * V; i += 32) {
@@ -209,7 +276,7 @@ __device__ __forceinline__ void store_rows(const float (*acc)[4], bf16* stage, b
 
 // s[j] (n8 tiles j = 0..2N-1) = the warp's 16 rows (A fragments a[D/16])
 // times the 16 N keys of `kb` ([key][d] rows ld apart) transposed.
-template <int D, int N>
+template <int D, int N, typename T = bf16>
 __device__ __forceinline__ void scores(float (*s)[4], const unsigned (*a)[4], const bf16* kb,
                                        int ld) {
 #pragma unroll
@@ -220,8 +287,8 @@ __device__ __forceinline__ void scores(float (*s)[4], const unsigned (*a)[4], co
     for (int kk = 0; kk < D / 16; ++kk) {
       unsigned b[4];
       frag_b_nk(b, kb + np * 16 * ld + kk * 16, ld);
-      mma(s[2 * np], a[kk], b[0], b[1]);
-      mma(s[2 * np + 1], a[kk], b[2], b[3]);
+      Elem<T>::mma(s[2 * np], a[kk], b[0], b[1]);
+      Elem<T>::mma(s[2 * np + 1], a[kk], b[2], b[3]);
     }
 }
 
@@ -247,16 +314,37 @@ __device__ __forceinline__ void scores_smem_a(float (*s)[4], const bf16* ab, int
   }
 }
 
+// The same over a depth known at run time (a multiple of 16), the A
+// fragments read from the warp's 16 rows at `ab` (rows lda apart): heads
+// wider than the registers hold.
+template <int N>
+__device__ __forceinline__ void scores_w(float (*s)[4], const bf16* ab, int lda, const bf16* kb,
+                                         int ld, int depth) {
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int kk = 0; kk < depth; kk += 16) {
+    unsigned a[4];
+    frag_a(a, ab + kk, lda);
+#pragma unroll
+    for (int np = 0; np < N; ++np) {
+      unsigned b[4];
+      frag_b_nk(b, kb + np * 16 * ld + kk, ld);
+      mma(s[2 * np], a, b[0], b[1]);
+      mma(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // acc[D/8] += A (16 x 16 keys) times 16 rows of `vb` ([key][d], rows ld apart).
-template <int D>
+template <int D, typename T = bf16>
 __device__ __forceinline__ void accumulate(float (*acc)[4], const unsigned a[4], const bf16* vb,
                                            int ld) {
 #pragma unroll
   for (int np = 0; np < D / 16; ++np) {
     unsigned b[4];
     frag_b_kn(b, vb + np * 16, ld);
-    mma(acc[2 * np], a, b[0], b[1]);
-    mma(acc[2 * np + 1], a, b[2], b[3]);
+    Elem<T>::mma(acc[2 * np], a, b[0], b[1]);
+    Elem<T>::mma(acc[2 * np + 1], a, b[2], b[3]);
   }
 }
 
@@ -303,7 +391,7 @@ __device__ __forceinline__ void store_stats(float* m_out, float* l_out, int pair
 // scores start when K has landed.  At D <= 32 the registers are capped so
 // that three CTAs share an SM, which fits without spilling and ran faster
 // than two; at wider heads the same cap spills.
-template <int D>
+template <int D, typename T_ = bf16>
 __global__ void __launch_bounds__(WARPS * 32, D <= 32 ? 3 : 1)
 attn_fwd_resident(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq, Strides sk,
@@ -339,7 +427,7 @@ attn_fwd_resident(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int ch = 0; ch < RES_CH; ++ch) {
         if (ch * KC >= T) break;
-        scores<D, KC / 16>(s[ch], qa, ks + ch * KC * LD, LD);
+        scores<D, KC / 16, T_>(s[ch], qa, ks + ch * KC * LD, LD);
         const bool edge = ch * KC + KC > T;
 #pragma unroll
         for (int j = 0; j < NC; ++j)
@@ -390,11 +478,11 @@ attn_fwd_resident(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         unsigned pa[4];
-        c_to_a(pa, s[ch][2 * kk], s[ch][2 * kk + 1]);
-        accumulate<D>(acc, pa, vs + (ch * KC + kk * 16) * LD, LD);
+        c_to_a<T_>(pa, s[ch][2 * kk], s[ch][2 * kk + 1]);
+        accumulate<D, T_>(acc, pa, vs + (ch * KC + kk * 16) * LD, LD);
       }
     }
-    store_rows<D>(acc, stage, pp.o, so.t, r0, T);
+    store_rows<D, T_>(acc, stage, pp.o, so.t, r0, T);
   }
 }
 
@@ -412,7 +500,7 @@ inline int fwd_window(int T, int D) {
 // reloads the windows in turn).  Pass 1 keeps each row's running max and
 // sum; pass 2 computes S again, p = 2^(s scale' - m) / l in fp32, rounds it
 // to bf16 in registers and adds P V into fp32 accumulators.
-template <int D>
+template <int D, typename T_ = bf16>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_fwd_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq, Strides sk,
@@ -460,7 +548,7 @@ attn_fwd_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int wend = min(W, round_up(T - w0, KC));
       for (int c0 = 0; c0 < wend; c0 += KC) {
         float s[NC][4];
-        scores<D, KC / 16>(s, qa, ks + c0 * LD, LD);
+        scores<D, KC / 16, T_>(s, qa, ks + c0 * LD, LD);
         const bool edge = w0 + c0 + KC > T;
         float cm[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -512,7 +600,7 @@ attn_fwd_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int wend = min(W, round_up(T - w0, KC));
       for (int c0 = 0; c0 < wend; c0 += KC) {
         float s[NC][4];
-        scores<D, KC / 16>(s, qa, ks + c0 * LD, LD);
+        scores<D, KC / 16, T_>(s, qa, ks + c0 * LD, LD);
         const bool edge = w0 + c0 + KC > T;
 #pragma unroll
         for (int j = 0; j < NC; ++j)
@@ -524,12 +612,12 @@ attn_fwd_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kk = 0; kk < KC / 16; ++kk) {
           unsigned pa[4];
-          c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-          accumulate<D>(acc, pa, vs + (c0 + kk * 16) * LD, LD);
+          c_to_a<T_>(pa, s[2 * kk], s[2 * kk + 1]);
+          accumulate<D, T_>(acc, pa, vs + (c0 + kk * 16) * LD, LD);
         }
       }
     }
-    if (active) store_rows<D>(acc, stage, pp.o, so.t, r0, T);
+    if (active) store_rows<D, T_>(acc, stage, pp.o, so.t, r0, T);
   }
 }
 
@@ -541,7 +629,7 @@ inline size_t fwd_smem(int W) {
 // o = attention over `pairs` (batch, head) pairs on `stream`, one CTA a
 // pair, and the rows' statistics when m_out is not null: the one-pass
 // kernel for T <= 256, the streaming kernel above.
-template <int D>
+template <int D, typename T_ = bf16>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, Strides sq,
                        Strides sk, Strides sv, Strides so, int pairs, int H, int T, float scale,
                        float* m_out, float* l_out, cudaStream_t stream) {
@@ -551,16 +639,150 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, Str
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
   if (resident) {
-    if ((err = cudaFuncSetAttribute(attn_fwd_resident<D>, attr, (int)smem)) != cudaSuccess)
+    if ((err = cudaFuncSetAttribute(attn_fwd_resident<D, T_>, attr, (int)smem)) != cudaSuccess)
       return err;
-    attn_fwd_resident<D><<<pairs, WARPS * 32, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H, T,
-                                                              scale, m_out, l_out);
+    attn_fwd_resident<D, T_><<<pairs, WARPS * 32, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H,
+                                                                  T, scale, m_out, l_out);
   } else {
-    if ((err = cudaFuncSetAttribute(attn_fwd_stream<D>, attr, (int)smem)) != cudaSuccess)
+    if ((err = cudaFuncSetAttribute(attn_fwd_stream<D, T_>, attr, (int)smem)) != cudaSuccess)
       return err;
-    attn_fwd_stream<D><<<pairs, WARPS * 32, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H, T, W,
-                                                            scale, m_out, l_out);
+    attn_fwd_stream<D, T_><<<pairs, WARPS * 32, smem, stream>>>(q, k, v, o, sq, sk, sv, so, H, T,
+                                                                W, scale, m_out, l_out);
   }
+  return cudaGetLastError();
+}
+
+constexpr size_t WIDE_BUDGET = 200 * 1024;   // shared memory of a wide-head CTA
+
+// Wide heads (DT = NS DV columns, DT > 128): one CTA a (pair, slab), two
+// passes over the keys as attn_fwd_stream, K staged at full width and V at
+// the slab's DV columns, in windows of W keys reloaded for every query tile
+// and pass; the warp's query rows staged whole and read as A fragments from
+// shared memory (scores_w).  o gets the slab's DV columns.
+template <int DV>
+__global__ void __launch_bounds__(WARPS * 32)
+attn_fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              bf16* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int H, int T,
+              int DT, int W, float scale, float* __restrict__ m_out, float* __restrict__ l_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LDV = DV + 8, NC = KC / 8;
+  const int LDT = DT + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
+  const int pair = blockIdx.x, slab = blockIdx.y;
+  const Pair pp(q, k, v, o, sq, sk, sv, so, pair, H);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)W * LDT;
+  bf16* stage = vs + (size_t)W * LDV + warp * 16 * LDT;
+  const float c2 = scale * LOG2E;
+  const float NEG_INF = __int_as_float(0xff800000);
+  auto load_window = [&](int w0, bool with_v) {
+    __syncthreads();
+    stage_rows_async_w(ks, pp.k, sk.t, w0, W, T, DT, threadIdx.x, blockDim.x);
+    if (with_v)
+      stage_rows_async_w(vs, pp.v + slab * DV, sv.t, w0, W, T, DV, threadIdx.x, blockDim.x);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+
+  for (int t0 = 0; t0 < T; t0 += TILE) {
+    const int r0 = t0 + warp * 16;
+    const bool active = r0 < T;
+    if (active) {
+      stage_rows_warp_w(stage, pp.q, sq.t, r0, 16, T, DT);
+      __syncwarp();
+    }
+    float mx[2] = {NEG_INF, NEG_INF}, sm[2] = {0.f, 0.f};
+    for (int w0 = 0; w0 < T; w0 += W) {
+      load_window(w0, false);
+      if (!active) continue;
+      const int wend = min(W, round_up(T - w0, KC));
+      for (int c0 = 0; c0 < wend; c0 += KC) {
+        float s[NC][4];
+        scores_w<KC / 16>(s, stage, LDT, ks + c0 * LDT, LDT, DT);
+        float cm[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[j][e] * c2;
+            if (w0 + c0 + j * 8 + 2 * c4 + (e & 1) >= T) x = NEG_INF;
+            s[j][e] = x;
+            cm[e >> 1] = fmaxf(cm[e >> 1], x);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(mx[r], quad_max(cm[r]));
+          sm[r] *= ex2(mx[r] - mn);
+          mx[r] = mn;
+        }
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sm[e >> 1] += ex2(s[j][e] - mx[e >> 1]);
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sm[r] = quad_sum(sm[r]);
+      inv[r] = 1.f / sm[r];
+    }
+    if (active && slab == 0) store_stats(m_out, l_out, pair, T, r0, mx, sm);
+
+    float acc[DV / 8][4];
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int w0 = 0; w0 < T; w0 += W) {
+      load_window(w0, true);
+      if (!active) continue;
+      const int wend = min(W, round_up(T - w0, KC));
+      for (int c0 = 0; c0 < wend; c0 += KC) {
+        float s[NC][4];
+        scores_w<KC / 16>(s, stage, LDT, ks + c0 * LDT, LDT, DT);
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool masked = w0 + c0 + j * 8 + 2 * c4 + (e & 1) >= T;
+            s[j][e] = masked ? 0.f : ex2(s[j][e] * c2 - mx[e >> 1]) * inv[e >> 1];
+          }
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          unsigned pa[4];
+          c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+          accumulate<DV>(acc, pa, vs + (c0 + kk * 16) * LDV, LDV);
+        }
+      }
+    }
+    if (active) store_rows<DV>(acc, stage, pp.o + slab * DV, so.t, r0, T);
+  }
+}
+
+// Keys a window of the wide forward holds (a multiple of KC), or 0 if not one chunk fits.
+inline int wide_window(int T, int DT, int DV) {
+  const size_t fixed = (size_t)WARPS * 16 * (DT + 8) * sizeof(bf16);
+  const size_t row = (size_t)(DT + 8 + DV + 8) * sizeof(bf16);
+  if (fixed + KC * row > WIDE_BUDGET) return 0;
+  const int w = (int)((WIDE_BUDGET - fixed) / row) / KC * KC;
+  const int t = round_up(T, KC);
+  return t < w ? t : w;
+}
+
+// o = attention over `pairs` pairs of heads DT = NS DV columns wide, one CTA
+// a (pair, slab), and the rows' statistics when m_out is not null.
+template <int DV>
+cudaError_t launch_fwd_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, Strides sq,
+                            Strides sk, Strides sv, Strides so, int pairs, int H, int T, int DT,
+                            float scale, float* m_out, float* l_out, cudaStream_t stream) {
+  const int W = wide_window(T, DT, DV);
+  if (W == 0 || DT % DV) return cudaErrorInvalidValue;
+  const size_t smem = ((size_t)W * (DT + 8 + DV + 8) + (size_t)WARPS * 16 * (DT + 8)) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_wide<DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_wide<DV><<<dim3(pairs, DT / DV), WARPS * 32, smem, stream>>>(
+      q, k, v, o, sq, sk, sv, so, H, T, DT, W, scale, m_out, l_out);
   return cudaGetLastError();
 }
 

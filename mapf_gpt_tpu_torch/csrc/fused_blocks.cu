@@ -2,10 +2,13 @@
 // layers -> bf16 [N, T, E], or [N, 1, E] (the last position) with the
 // chunk's final layer thinned.  T is a runtime argument, any T >= 1.  Built
 // with no defines for the 85M's width (E=768, head dim 64, 12 heads);
-// -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh> build another width: E a
-// multiple of 8 (TMA's 16-byte row strides), any head dim from 1 to 128
-// (the static asserts below, which ops/fused_blocks.py checks before it
-// starts nvcc).
+// -DFUSED_BLOCKS_E=<E> -DFUSED_BLOCKS_DH=<dh> build another width: any E
+// and any head dim from 1 to 512 (the static asserts below, which
+// ops/fused_blocks.py checks before it starts nvcc).  An E that is not a
+// multiple of 8 is stored padded with zero columns to the next one (TMA's
+// 16-byte row strides; the wrapper pads x, the weights and the gains, and
+// the MLP's 4E likewise), and LayerNorm takes its mean and variance over
+// the true E, so that the padding changes nothing.
 //
 // Replaces the TPU kernel mapf_gpt_tpu/ops/fused_gpt.py::_block_kernel and
 // computes what it computes, per layer:
@@ -24,7 +27,11 @@
 // take DP = DH rounded up to 16 (the attention tiles' depth), so Wqkv is
 // [E, 3 H DP] and Wproj [H DP, E], their extra columns and rows zero (the
 // wrapper pads them; none at the repo's models, whose head dims are
-// multiples of 16).  Zero columns change neither the scores nor P@V.
+// multiples of 16).  Zero columns change neither the scores nor P@V.  A
+// head past 128 columns (more than the attention tile holds in registers)
+// is cut into NS slabs of DV <= 128 columns, DP = NS DV:
+// blocks_attention_wide runs one slab of a head's output a CTA, its scores
+// over all DP columns read from shared memory (attn::scores_w).
 //
 // Bound on an H100 SXM for the 85M's whole stack (12 layers, the last
 // thinned) at N = 2048 contexts (the JAX harness's 85M context cap):
@@ -84,18 +91,20 @@ namespace {
 #define FUSED_BLOCKS_DH 64       // its head dim
 #endif
 
-constexpr int E = FUSED_BLOCKS_E;
+constexpr int EL = FUSED_BLOCKS_E;     // n_embd
+constexpr int E = (EL + 7) / 8 * 8;    // its stored width (TMA's 16-byte row strides)
 constexpr int DH = FUSED_BLOCKS_DH;
-constexpr int H = E / DH;              // heads (12 for the 85M)
-constexpr int DP = (DH + 15) / 16 * 16;  // a head's padded width
+constexpr int H = EL / DH;             // heads (12 for the 85M)
+constexpr int NS = (DH + 127) / 128;   // slabs of a head's attention output
+constexpr int DV = ((DH + NS - 1) / NS + 15) / 16 * 16;   // a slab's width
+constexpr int DP = NS * DV;            // a head's padded width (DH rounded up to 16 for NS = 1)
 constexpr int EA = H * DP;             // attention width (E when DH % 16 == 0)
 constexpr int E3 = 3 * EA;             // q|k|v width
-constexpr int F = 4 * E;               // MLP hidden width
+constexpr int F = (4 * EL + 7) / 8 * 8;   // MLP hidden width, stored
 constexpr float EXP2_CLAMP = 100.f;
 constexpr float LN_EPS = 1e-5f;
-static_assert(E % 8 == 0, "n_embd a multiple of 8: TMA's 16-byte row strides, LN's 8-value chunks");
-static_assert(DH >= 1 && DH <= 128, "head dim from 1 to 128");
-static_assert(E % DH == 0, "whole heads");
+static_assert(DH >= 1 && DH <= 512, "head dim from 1 to 512");
+static_assert(EL % DH == 0, "whole heads");
 constexpr int LN_J = (E / 8 + 31) / 32;  // 8-value chunks a lane holds in ln_kernel
 
 constexpr int ATT_WINDOW = 128;        // keys a window of K and V holds
@@ -163,7 +172,7 @@ ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g
 #pragma unroll
     for (int i = 0; i < 8; ++i) s += v[j][i];
   }
-  const float mu = warp_sum(s) * (1.f / E);
+  const float mu = warp_sum(s) * (1.f / EL);   // the padding columns hold 0
   float q = 0.f;
 #pragma unroll
   for (int j = 0; j < LN_J; ++j) {
@@ -171,10 +180,10 @@ ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float d = v[j][i] - mu;
-      q += d * d;
+      if (E == EL || (lane + 32 * j) * 8 + i < EL) q += d * d;
     }
   }
-  const float rs = rsqrtf(warp_sum(q) * (1.f / E) + LN_EPS);
+  const float rs = rsqrtf(warp_sum(q) * (1.f / EL) + LN_EPS);
   bf16* yr = y + (size_t)row * E;
 #pragma unroll
   for (int j = 0; j < LN_J; ++j) {
@@ -292,6 +301,71 @@ blocks_attention(const bf16* __restrict__ qkv, bf16* __restrict__ att, int T, in
   attn::store_rows<D>(acc, stage, att + (size_t)ctx * T * EA + h * D, EA, r0, T);
 }
 
+// Attention of one (64-row query tile, head, slab of DV output columns,
+// context) a CTA for heads wider than 128 columns: the warp's query rows
+// staged whole [16][DP + 8] and read as A fragments from shared memory, K
+// in windows of W keys at full width, V at the slab's columns; as
+// blocks_attention otherwise.  Every slab computes the same e.
+__global__ void __launch_bounds__(attn::WARPS * 32)
+blocks_attention_wide(const bf16* __restrict__ qkv, bf16* __restrict__ att, int T, int W) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LDT = DP + 8, LDV = DV + 8, NC = attn::KC / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
+  const int h = blockIdx.y / NS, slab = blockIdx.y % NS, ctx = blockIdx.z;
+  const int r0 = blockIdx.x * attn::TILE + warp * 16;
+  const bool active = r0 < T;
+  const bf16* q = qkv + (size_t)ctx * T * E3 + h * DP;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)W * LDT;
+  bf16* stage = vs + (size_t)W * LDV + warp * 16 * LDT;
+
+  if (active) attn::stage_rows_warp_w(stage, q, E3, r0, 16, T, DP);
+  __syncwarp();
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float rs[2] = {0.f, 0.f};
+  for (int w0 = 0; w0 < T; w0 += W) {
+    __syncthreads();
+    attn::stage_rows_async_w(ks, q + EA, E3, w0, W, T, DP, threadIdx.x, blockDim.x);
+    attn::stage_rows_async_w(vs, q + 2 * EA + slab * DV, E3, w0, W, T, DV, threadIdx.x,
+                             blockDim.x);
+    attn::cp_async_commit();
+    attn::cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, attn::KC));
+    for (int c0 = 0; c0 < wend; c0 += attn::KC) {
+      float s[NC][4];
+      attn::scores_w<attn::KC / 16>(s, stage, LDT, ks + c0 * LDT, LDT, DP);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float x = key_ok ? rbf(exp2f(fminf(s[j][e], EXP2_CLAMP))) : 0.f;
+          s[j][e] = x;
+          rs[e >> 1] += x;
+        }
+#pragma unroll
+      for (int kk = 0; kk < attn::KC / 16; ++kk) {
+        unsigned pa[4];
+        attn::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        attn::accumulate<DV>(acc, pa, vs + (c0 + kk * 16) * LDV, LDV);
+      }
+    }
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / attn::quad_sum(rs[r]);
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  attn::store_rows<DV>(acc, stage, att + (size_t)ctx * T * EA + h * DP + slab * DV, EA, r0, T);
+}
+
 // Attention of the last position, one context a CTA, a warp a head at a
 // time: att_last[c] from q_last [n, EA] and the K/V of qkv [n, T, 3 EA].  A
 // lane scores one key of each 32 (fp32 dot product over DP), then the warp
@@ -356,14 +430,31 @@ cudaError_t layer_norm(const bf16* x, long long ldx, const float* g, bf16* y, in
 
 size_t attention_smem(int W) { return ((size_t)2 * W + attn::TILE) * (DP + 8) * sizeof(bf16); }
 
+// Keys a window of the wide attention holds within attn::WIDE_BUDGET.
+constexpr int WIDE_WINDOW =
+    (int)((attn::WIDE_BUDGET - (size_t)attn::TILE * (DP + 8) * 2) / ((DP + 8 + DV + 8) * 2)) /
+    attn::KC * attn::KC;
+static_assert(NS == 1 || WIDE_WINDOW >= attn::KC, "a wide head's window fits shared memory");
+
 cudaError_t attention(const bf16* qkv, bf16* att, int nc, int T, cudaStream_t stream) {
+  if constexpr (NS > 1) {
+    const int W = T < WIDE_WINDOW ? attn::round_up(T, attn::KC) : WIDE_WINDOW;
+    const size_t smem = ((size_t)W * (DP + 8 + DV + 8) + (size_t)attn::TILE * (DP + 8)) * 2;
+    cudaError_t err = cudaFuncSetAttribute(blocks_attention_wide,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T + attn::TILE - 1) / attn::TILE, H * NS, nc);
+    blocks_attention_wide<<<grid, attn::WARPS * 32, smem, stream>>>(qkv, att, T, W);
+    return cudaGetLastError();
+  }
+  constexpr int D1 = NS == 1 ? DP : 16;   // the register tile's head (not built for wide heads)
   const int W = T < ATT_WINDOW ? attn::round_up(T, attn::KC) : ATT_WINDOW;
   const size_t smem = attention_smem(W);
-  cudaError_t err = cudaFuncSetAttribute(blocks_attention<DP>,
+  cudaError_t err = cudaFuncSetAttribute(blocks_attention<D1>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + attn::TILE - 1) / attn::TILE, H, nc);
-  blocks_attention<DP><<<grid, attn::WARPS * 32, smem, stream>>>(qkv, att, T, W);
+  blocks_attention<D1><<<grid, attn::WARPS * 32, smem, stream>>>(qkv, att, T, W);
   return cudaGetLastError();
 }
 
@@ -380,7 +471,7 @@ extern "C" {
 // Shape constants the kernels were built for, for the wrapper's checks:
 // n_embd, heads and a head's padded width.
 int fused_blocks_config(int* e, int* h, int* dp) {
-  *e = E;
+  *e = EL;
   *h = H;
   *dp = DP;
   return 0;

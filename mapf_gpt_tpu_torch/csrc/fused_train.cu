@@ -71,9 +71,15 @@
 // gradients take DP = dh rounded up to 16 columns (the attention tiles'
 // depth), so Wqkv is [E, 3 H DP] and Wproj [H DP, E], with zero columns and
 // rows the wrapper adds and drops (none at the repo's models); zero columns
-// change no score, product or gradient.  The scale stays 1/sqrt(dh).
-// Shapes: any T >= 1, head dims 1 to 128, E a multiple of 8 (TMA's 16-byte
-// row strides).
+// change no score, product or gradient.  The scale stays 1/sqrt(dh).  A
+// head past 128 columns is padded to DP = NS DV (NS slabs of DV <= 128) and
+// runs attn::launch_fwd_wide and attn_bwd_q_wide / attn_bwd_kv_wide, one
+// CTA a slab of the output columns, the scores summed over all DP columns
+// from shared memory (they recompute the scores in every slab).
+// Shapes: any T >= 1, head dims 1 to 512, any E: an E that is not a multiple
+// of 8 (TMA's 16-byte row strides) is stored padded with zero columns to the
+// next multiple, and 4E likewise; the wrapper pads and unpads, and
+// LayerNorm and its backward take their means over the true E.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libfused_train.so fused_train.cu   (ops/_build.py)
@@ -215,22 +221,25 @@ struct EpiF32Gelu {
   }
 };
 
-// y[r] = bf16(LN(x[r]) * g) for M rows, a warp per row (rows ldx and ldy apart).
+// y[r] = bf16(LN(x[r]) * g) for M rows, a warp per row (rows ldx and ldy
+// apart): the statistics over the first EL of the E stored columns (the rest
+// are the zero padding of an n_embd that is not a multiple of 8; g is zero
+// there, so y is too).
 __global__ void __launch_bounds__(256)
 ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g,
-          bf16* __restrict__ y, int ldy, int M, int E) {
+          bf16* __restrict__ y, int ldy, int M, int E, int EL) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * ldx;
   float s = 0.f;
-  for (int c = lane; c < E; c += 32) s += __bfloat162float(xr[c]);
-  const float mu = warp_sum(s) / E;
+  for (int c = lane; c < EL; c += 32) s += __bfloat162float(xr[c]);
+  const float mu = warp_sum(s) / EL;
   float q = 0.f;
-  for (int c = lane; c < E; c += 32) {
+  for (int c = lane; c < EL; c += 32) {
     const float d = __bfloat162float(xr[c]) - mu;
     q += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(q) / E + LN_EPS);
+  const float rstd = rsqrtf(warp_sum(q) / EL + LN_EPS);
   bf16* yr = y + (size_t)row * ldy;
   for (int c = lane; c < E; c += 32)
     yr[c] = __float2bfloat16((__bfloat162float(xr[c]) - mu) * rstd * g[c]);
@@ -239,37 +248,39 @@ ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g
 // LayerNorm backward of y = LN(x) * g for M rows [E], a warp per row:
 // dx += (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat)) * rstd, then dxb =
 // bf16(dx); the rows' mean and 1/std go to mu, rs for dg_partial_kernel.
+// The means over the first EL columns; the padding columns past EL keep dx
+// (zero) and get dxb = 0.
 __global__ void __launch_bounds__(256)
 ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
               const float* __restrict__ dy, float* __restrict__ dx, bf16* __restrict__ dxb,
-              float* __restrict__ mu_out, float* __restrict__ rs_out, int M, int E) {
+              float* __restrict__ mu_out, float* __restrict__ rs_out, int M, int E, int EL) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * E;
   const float* dyr = dy + (size_t)row * E;
   float s = 0.f;
-  for (int c = lane; c < E; c += 32) s += __bfloat162float(xr[c]);
-  const float mu = warp_sum(s) / E;
+  for (int c = lane; c < EL; c += 32) s += __bfloat162float(xr[c]);
+  const float mu = warp_sum(s) / EL;
   float q = 0.f;
-  for (int c = lane; c < E; c += 32) {
+  for (int c = lane; c < EL; c += 32) {
     const float d = __bfloat162float(xr[c]) - mu;
     q += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(q) / E + LN_EPS);
+  const float rstd = rsqrtf(warp_sum(q) / EL + LN_EPS);
   float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < E; c += 32) {
+  for (int c = lane; c < EL; c += 32) {
     const float xhat = (__bfloat162float(xr[c]) - mu) * rstd;
     const float d = dyr[c] * g[c];
     s1 += d;
     s2 += d * xhat;
   }
-  const float m1 = warp_sum(s1) / E, m2 = warp_sum(s2) / E;
+  const float m1 = warp_sum(s1) / EL, m2 = warp_sum(s2) / EL;
   float* dxr = dx + (size_t)row * E;
   bf16* dxbr = dxb + (size_t)row * E;
   for (int c = lane; c < E; c += 32) {
     const float xhat = (__bfloat162float(xr[c]) - mu) * rstd;
     const float d = dyr[c] * g[c];
-    const float v = dxr[c] + (d - m1 - xhat * m2) * rstd;
+    const float v = c < EL ? dxr[c] + (d - m1 - xhat * m2) * rstd : dxr[c];
     dxr[c] = v;
     dxbr[c] = __float2bfloat16(v);
   }
@@ -570,6 +581,216 @@ attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
   attn::store_rows<DH>(dv, vst, out + 2 * EA, E3, k0, T);
 }
 
+// Heads wider than 128 columns: the head padded to DT = NS DV columns, one
+// CTA a (64 query rows or keys, head and slab of DV output columns,
+// context).  The rows of both sides are staged whole and the scores and dP
+// (or S^T and dP^T) summed over all DT columns with the A fragments read
+// from shared memory (attn::scores_w); the slab's dq (or dk and dv) come
+// from the slab's DV columns of K (or of Q and dA).  Every slab computes the
+// same p and ds in the same order; slab 0 writes delta.  The windows are
+// reloaded in every pass.
+template <int DV>
+__global__ void __launch_bounds__(attn::WARPS * 32)
+attn_bwd_q_wide(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                const float* __restrict__ m_in, const float* __restrict__ l_in,
+                float* __restrict__ delta_out, bf16* __restrict__ dqkv, int T, int EA, int DT,
+                int W, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NB = BC / 8;
+  const int LDT = DT + 8, NS = DT / DV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c4 = lane & 3;
+  const int h = blockIdx.y / NS, slab = blockIdx.y % NS, H = gridDim.y / NS, ctx = blockIdx.z;
+  const int E3 = 3 * EA;
+  const int r0 = blockIdx.x * attn::TILE + warp * 16;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)W * LDT;
+  bf16* qst = vs + (size_t)W * LDT + warp * 32 * LDT;
+  bf16* dast = qst + 16 * LDT;
+  const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DT;
+  const bf16* dap = datt + (size_t)ctx * T * EA + h * DT;
+  const size_t srow = ((size_t)ctx * H + h) * T;
+  auto load_window = [&](int w0) {
+    __syncthreads();
+    attn::stage_rows_async_w(ks, qp + EA, E3, w0, W, T, DT, threadIdx.x, blockDim.x);
+    attn::stage_rows_async_w(vs, qp + 2 * EA, E3, w0, W, T, DT, threadIdx.x, blockDim.x);
+    attn::cp_async_commit();
+    attn::cp_async_wait<0>();
+    __syncthreads();
+  };
+  const bool active = r0 < T;
+  float mr[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  if (active) {
+    attn::stage_rows_warp_w(qst, qp, E3, r0, 16, T, DT);
+    attn::stage_rows_warp_w(dast, dap, EA, r0, 16, T, DT);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + g + 8 * r < T) {
+        mr[r] = m_in[srow + r0 + g + 8 * r];
+        inv[r] = 1.f / l_in[srow + r0 + g + 8 * r];
+      }
+  }
+  __syncwarp();
+  const float c2 = scale * attn::LOG2E;
+
+  // pass A: delta_i = sum_j dp_ij p_ij
+  float dl[2] = {0.f, 0.f};
+  for (int w0 = 0; w0 < T; w0 += W) {
+    load_window(w0);
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float s[NB][4], dp[NB][4];
+      attn::scores_w<BC / 16>(s, qst, LDT, ks + c0 * LDT, LDT, DT);
+      attn::scores_w<BC / 16>(dp, dast, LDT, vs + c0 * LDT, LDT, DT);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+          dl[e >> 1] += dp[j][e] * p;
+        }
+    }
+  }
+  if (active) {
+    dl[0] = attn::quad_sum(dl[0]);
+    dl[1] = attn::quad_sum(dl[1]);
+  }
+
+  // pass B: ds = bf16(((dp - delta) p) scale); dq[:, slab] += ds K[:, slab]
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int w0 = 0; w0 < T; w0 += W) {
+    load_window(w0);
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float s[NB][4], dp[NB][4];
+      attn::scores_w<BC / 16>(s, qst, LDT, ks + c0 * LDT, LDT, DT);
+      attn::scores_w<BC / 16>(dp, dast, LDT, vs + c0 * LDT, LDT, DT);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool key_ok = w0 + c0 + j * 8 + 2 * c4 + (e & 1) < T;
+          const float p = key_ok ? attn::ex2(s[j][e] * c2 - mr[e >> 1]) * inv[e >> 1] : 0.f;
+          s[j][e] = ((dp[j][e] - dl[e >> 1]) * p) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        unsigned a[4];
+        attn::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+        attn::accumulate<DV>(acc, a, ks + (c0 + kk * 16) * LDT + slab * DV, LDT);
+      }
+    }
+  }
+  if (!active) return;
+  attn::store_rows<DV>(acc, qst, dqkv + (size_t)ctx * T * E3 + h * DT + slab * DV, E3, r0, T);
+  if (c4 == 0 && slab == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + g + 8 * r < T) delta_out[srow + r0 + g + 8 * r] = dl[r];
+  }
+}
+
+template <int DV>
+__global__ void __launch_bounds__(attn::WARPS * 32)
+attn_bwd_kv_wide(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                 const float* __restrict__ m_in, const float* __restrict__ l_in,
+                 const float* __restrict__ delta_in, bf16* __restrict__ dqkv, int T, int EA,
+                 int DT, int W, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NB = BC / 8;
+  const int LDT = DT + 8, NS = DT / DV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c4 = lane & 3;
+  const int h = blockIdx.y / NS, slab = blockIdx.y % NS, H = gridDim.y / NS, ctx = blockIdx.z;
+  const int E3 = 3 * EA;
+  const int k0 = blockIdx.x * attn::TILE + warp * 16;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* das = qs + (size_t)W * LDT;
+  bf16* kst = das + (size_t)W * LDT + warp * 32 * LDT;
+  bf16* vst = kst + 16 * LDT;
+  float* ms = reinterpret_cast<float*>(das + (size_t)W * LDT + attn::WARPS * 32 * LDT);
+  float* li = ms + W;
+  float* dls = li + W;
+  const bf16* qp = qkv + (size_t)ctx * T * E3 + h * DT;
+  const bf16* dap = datt + (size_t)ctx * T * EA + h * DT;
+  const size_t srow = ((size_t)ctx * H + h) * T;
+  const bool active = k0 < T;
+  if (active) {
+    attn::stage_rows_warp_w(kst, qp + EA, E3, k0, 16, T, DT);
+    attn::stage_rows_warp_w(vst, qp + 2 * EA, E3, k0, 16, T, DT);
+  }
+  __syncwarp();
+  const float c2 = scale * attn::LOG2E;
+
+  float dk[DV / 8][4], dv[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int w0 = 0; w0 < T; w0 += W) {
+    __syncthreads();
+    attn::stage_rows_async_w(qs, qp, E3, w0, W, T, DT, threadIdx.x, blockDim.x);
+    attn::stage_rows_async_w(das, dap, EA, w0, W, T, DT, threadIdx.x, blockDim.x);
+    attn::cp_async_commit();
+    // queries past T: m = +inf, so that p = 2^(-inf) = 0
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      const bool ok = w0 + i < T;
+      ms[i] = ok ? m_in[srow + w0 + i] : __int_as_float(0x7f800000);
+      li[i] = ok ? 1.f / l_in[srow + w0 + i] : 0.f;
+      dls[i] = ok ? delta_in[srow + w0 + i] : 0.f;
+    }
+    attn::cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    const int wend = min(W, attn::round_up(T - w0, BC));
+    for (int c0 = 0; c0 < wend; c0 += BC) {
+      float st[NB][4], dpt[NB][4];   // S^T and dP^T: rows are keys, columns queries
+      attn::scores_w<BC / 16>(st, kst, LDT, qs + c0 * LDT, LDT, DT);
+      attn::scores_w<BC / 16>(dpt, vst, LDT, das + c0 * LDT, LDT, DT);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = c0 + j * 8 + 2 * c4 + (e & 1);
+          const float p = attn::ex2(st[j][e] * c2 - ms[i]) * li[i];
+          st[j][e] = p;
+          dpt[j][e] = ((dpt[j][e] - dls[i]) * p) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        unsigned a[4];
+        attn::c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+        attn::accumulate<DV>(dv, a, das + (c0 + kk * 16) * LDT + slab * DV, LDT);
+        attn::c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
+        attn::accumulate<DV>(dk, a, qs + (c0 + kk * 16) * LDT + slab * DV, LDT);
+      }
+    }
+  }
+  if (!active) return;
+  bf16* out = dqkv + (size_t)ctx * T * E3 + h * DT + slab * DV;
+  attn::store_rows<DV>(dk, kst, out + EA, E3, k0, T);
+  attn::store_rows<DV>(dv, vst, out + 2 * EA, E3, k0, T);
+}
+
+// Rows a window of the wide backward holds within BWD_WIDE_BUDGET (a
+// multiple of BC), or 0 if not one chunk fits.
+constexpr size_t BWD_WIDE_BUDGET = 220 * 1024;
+size_t bwd_wide_smem(int W, int DT, bool key_side) {
+  return ((size_t)2 * W + 2 * attn::TILE) * (DT + 8) * sizeof(bf16) +
+         (key_side ? 3 * (size_t)W * sizeof(float) : 0);
+}
+int bwd_wide_window(int T, int DT, bool key_side) {
+  const size_t fixed = bwd_wide_smem(0, DT, key_side);
+  const size_t row = 2 * (DT + 8) * sizeof(bf16) + (key_side ? 3 * sizeof(float) : 0);
+  if (fixed + BC * row > BWD_WIDE_BUDGET) return 0;
+  const int w = (int)((BWD_WIDE_BUDGET - fixed) / row) / BC * BC;
+  const int t = attn::round_up(T, BC);
+  return t < w ? t : w;
+}
+
 #define RETURN_IF_ERROR(call)                  \
   do {                                         \
     const cudaError_t err_ = (call);           \
@@ -610,38 +831,100 @@ cudaError_t gain_grad(const bf16* x, const float* dy, const float* mu, const flo
 }
 
 cudaError_t layer_norm(const bf16* x, long long ldx, const float* g, bf16* y, int ldy, int M,
-                       int E, cudaStream_t stream) {
-  ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, ldy, M, E);
+                       int E, int EL, cudaStream_t stream) {
+  ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, ldy, M, E, EL);
   return cudaGetLastError();
 }
 
 // 1/sqrt(dh) in double, rounded once to fp32, as the JAX kernels' python scale
 float attn_scale(int dh) { return (float)(1.0 / std::sqrt((double)dh)); }
 
-// The attention's shape: H heads of dh columns, each padded to DP (the
-// template DH of the kernels), EA = H DP wide.
+// The attention's shape: H heads of dh columns, each padded to DP = NS DV
+// columns (NS slabs of DV; NS = 1 and DP = dh rounded up to 16 for head
+// dims up to 128), EA = H DP wide.
 struct Heads {
-  int H, dh, EA;
+  int H, dh, NS, DV, DP, EA;
 };
 
+// f(std::integral_constant<int, DV>()) for a padded width dv (16 .. 128).
+template <typename Fn>
+cudaError_t with_width(int dv, Fn f) {
+  switch (dv) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    default: return f(std::integral_constant<int, 128>());
+  }
+}
+
+// f(std::integral_constant<int, DV>()) for a wide head's slab width, which
+// is 80 .. 128 for head dims 129 .. 512.
+template <typename Fn>
+cudaError_t with_slab_width(int dv, Fn f) {
+  switch (dv) {
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    default: return f(std::integral_constant<int, 128>());
+  }
+}
+
 // att = the attention of qkv [nc, T, 3 EA] -> [nc, T, EA] (attn::launch_fwd
-// over the nc x H (context, head) pairs), and each row's statistics m, l
-// [nc, H, T] when not null.
-template <int DH>
+// over the nc x H (context, head) pairs, or attn::launch_fwd_wide for heads
+// past 128 columns), and each row's statistics m, l [nc, H, T] when not null.
 cudaError_t attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T,
                           Heads hd, cudaStream_t stream) {
   const long long E3 = 3LL * hd.EA;
-  const attn::Strides sqkv{T * E3, DH, E3}, so{(long long)T * hd.EA, DH, hd.EA};
-  return attn::launch_fwd<DH>(qkv, qkv + hd.EA, qkv + 2 * hd.EA, att, sqkv, sqkv, sqkv, so,
-                              nc * hd.H, hd.H, T, attn_scale(hd.dh), m, l, stream);
+  const attn::Strides sqkv{T * E3, hd.DP, E3}, so{(long long)T * hd.EA, hd.DP, hd.EA};
+  if (hd.NS > 1)
+    return with_slab_width(hd.DV, [&](auto dv) {
+      return attn::launch_fwd_wide<decltype(dv)::value>(
+          qkv, qkv + hd.EA, qkv + 2 * hd.EA, att, sqkv, sqkv, sqkv, so, nc * hd.H, hd.H, T, hd.DP,
+          attn_scale(hd.dh), m, l, stream);
+    });
+  return with_width(hd.DP, [&](auto dp) {
+    return attn::launch_fwd<decltype(dp)::value>(qkv, qkv + hd.EA, qkv + 2 * hd.EA, att, sqkv,
+                                                 sqkv, sqkv, so, nc * hd.H, hd.H, T,
+                                                 attn_scale(hd.dh), m, l, stream);
+  });
+}
+
+// The wide heads' backward: attn_bwd_q_wide, then attn_bwd_kv_wide, one CTA a
+// (tile, head and slab, context).
+template <int DV>
+cudaError_t attention_bwd_wide(const bf16* qkv, const bf16* datt, const float* m, const float* l,
+                               float* delta, bf16* dqkv, int nc, int T, Heads hd,
+                               cudaStream_t stream) {
+  const dim3 grid((T + attn::TILE - 1) / attn::TILE, hd.H * hd.NS, nc);
+  const int wq = bwd_wide_window(T, hd.DP, false), wkv = bwd_wide_window(T, hd.DP, true);
+  if (wq == 0 || wkv == 0) return cudaErrorInvalidValue;
+  const size_t sq = bwd_wide_smem(wq, hd.DP, false), skv = bwd_wide_smem(wkv, hd.DP, true);
+  const float scale = attn_scale(hd.dh);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_wide<DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_bwd_kv_wide<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)skv);
+  if (err != cudaSuccess) return err;
+  attn_bwd_q_wide<DV><<<grid, attn::WARPS * 32, sq, stream>>>(qkv, datt, m, l, delta, dqkv, T,
+                                                              hd.EA, hd.DP, wq, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_kv_wide<DV><<<grid, attn::WARPS * 32, skv, stream>>>(qkv, datt, m, l, delta, dqkv, T,
+                                                                hd.EA, hd.DP, wkv, scale);
+  return cudaGetLastError();
 }
 
 // dqkv [nc, T, 3 EA] from qkv, datt [nc, T, EA] and the forward's m, l;
 // delta [nc, H, T] is the query side's scratch for the key side.
 template <int DH>
-cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, const float* l,
-                          float* delta, bf16* dqkv, int nc, int T, Heads hd,
-                          cudaStream_t stream) {
+cudaError_t attention_bwd_tile(const bf16* qkv, const bf16* datt, const float* m, const float* l,
+                               float* delta, bf16* dqkv, int nc, int T, Heads hd,
+                               cudaStream_t stream) {
   const dim3 grid((T + attn::TILE - 1) / attn::TILE, hd.H, nc);
   const int wq = bwd_window<DH>(T, false), wkv = bwd_window<DH>(T, true);
   const size_t sq = bwd_q_smem<DH>(wq), skv = bwd_kv_smem<DH>(wkv);
@@ -661,6 +944,20 @@ cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, con
   return cudaGetLastError();
 }
 
+cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, const float* l,
+                          float* delta, bf16* dqkv, int nc, int T, Heads hd,
+                          cudaStream_t stream) {
+  if (hd.NS > 1)
+    return with_slab_width(hd.DV, [&](auto dv) {
+      return attention_bwd_wide<decltype(dv)::value>(qkv, datt, m, l, delta, dqkv, nc, T, hd,
+                                                     stream);
+    });
+  return with_width(hd.DP, [&](auto dp) {
+    return attention_bwd_tile<decltype(dp)::value>(qkv, datt, m, l, delta, dqkv, nc, T, hd,
+                                                   stream);
+  });
+}
+
 // The workspace of a group of g contexts, carved in 256-byte-aligned pieces.
 struct Workspace {
   size_t bytes = 0;
@@ -675,12 +972,12 @@ struct FwdBufs {
   bf16 *xn, *qkv, *att, *hact;
 };
 
-FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E, int EA) {
+FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E, int F, int EA) {
   FwdBufs b;
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * EA * 2));
   b.att = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
-  b.hact = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
+  b.hact = reinterpret_cast<bf16*>(base + w.take(rows * F * 2));
   return b;
 }
 
@@ -689,19 +986,19 @@ struct BwdBufs {
   bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv;
 };
 
-BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, Heads hd) {
+BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int F, Heads hd) {
   const size_t rows = (size_t)g * T;
   const int EA = hd.EA;
   BwdBufs b;
   b.dx = reinterpret_cast<float*>(base + w.take(rows * E * 4));
-  b.hmid = reinterpret_cast<float*>(base + w.take(rows * 4 * E * 4));
+  b.hmid = reinterpret_cast<float*>(base + w.take(rows * F * 4));
   b.dxn = reinterpret_cast<float*>(base + w.take(rows * E * 4));
   b.mu = reinterpret_cast<float*>(base + w.take(rows * 4));
   b.rs = reinterpret_cast<float*>(base + w.take(rows * 4));
   // dW partials: at most the largest splits x stack slice, or the gains'
   size_t part = 0;
   const int K = (int)rows;
-  const int shapes[4][2] = {{E, 3 * EA}, {EA, E}, {E, 4 * E}, {4 * E, E}};
+  const int shapes[4][2] = {{E, 3 * EA}, {EA, E}, {E, F}, {F, E}};
   for (auto& s : shapes) {
     const size_t need = (size_t)dw_splits(s[0], s[1], K) * s[0] * s[1];
     part = need > part ? need : part;
@@ -715,8 +1012,8 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, Heads
   b.delta = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
   b.dxb = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
-  b.hact = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
-  b.dh = reinterpret_cast<bf16*>(base + w.take(rows * 4 * E * 2));
+  b.hact = reinterpret_cast<bf16*>(base + w.take(rows * F * 2));
+  b.dh = reinterpret_cast<bf16*>(base + w.take(rows * F * 2));
   b.qkv = reinterpret_cast<bf16*>(base + w.take(rows * 3 * EA * 2));
   b.att = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
   b.datt = reinterpret_cast<bf16*>(base + w.take(rows * EA * 2));
@@ -724,41 +1021,33 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, Heads
   return b;
 }
 
-bool shape_ok(int T, int E, int H) {
-  if (H <= 0 || E % H || E % 8 || T < 1) return false;
-  return E / H <= 128;
-}
+// n_embd EL is stored in E = EL rounded up to 8 columns, the MLP's 4 EL in F
+// (zero columns past EL and 4 EL, which the wrapper adds and drops).
+int stored(int n) { return (n + 7) / 8 * 8; }
 
 Heads heads_of(int E, int H) {
   const int dh = E / H;
-  return Heads{H, dh, H * ((dh + 15) / 16 * 16)};
+  const int ns = (dh + 127) / 128;
+  const int dv = ((dh + ns - 1) / ns + 15) / 16 * 16;
+  return Heads{H, dh, ns, dv, ns * dv, H * ns * dv};
 }
 
-// f(std::integral_constant<int, DP>()) for the padded head dim dp (shape_ok holds).
-template <typename Fn>
-int with_head_dim(int dp, Fn f) {
-  switch (dp) {
-    case 16: return f(std::integral_constant<int, 16>());
-    case 32: return f(std::integral_constant<int, 32>());
-    case 48: return f(std::integral_constant<int, 48>());
-    case 64: return f(std::integral_constant<int, 64>());
-    case 80: return f(std::integral_constant<int, 80>());
-    case 96: return f(std::integral_constant<int, 96>());
-    case 112: return f(std::integral_constant<int, 112>());
-    default: return f(std::integral_constant<int, 128>());
-  }
+bool shape_ok(int T, int E, int H) {
+  if (H <= 0 || E % H || T < 1 || E / H > 512) return false;
+  const Heads hd = heads_of(E, H);
+  return hd.NS == 1 || (attn::wide_window(T, hd.DP, hd.DV) > 0 &&
+                        bwd_wide_window(T, hd.DP, false) > 0 && bwd_wide_window(T, hd.DP, true) > 0);
 }
 
-template <int DH>
 int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const bf16* wproj,
                  const bf16* wfc, const bf16* wfc2, const float* g1, const float* g2,
-                 unsigned char* ws, int n, int T, int E, Heads hd, int layers, int last_only,
+                 unsigned char* ws, int n, int T, int EL, Heads hd, int layers, int last_only,
                  int group, cudaStream_t stream) {
-  const int EA = hd.EA, E3 = 3 * EA, F = 4 * E;
+  const int E = stored(EL), EA = hd.EA, E3 = 3 * EA, F = stored(4 * EL);
   const size_t stream_elems = (size_t)n * T * E;
   RETURN_IF_ERROR(cudaMemcpyAsync(xsave, x, stream_elems * 2, cudaMemcpyDeviceToDevice, stream));
   Workspace w;
-  const FwdBufs b = fwd_layout(ws, w, (size_t)group * T, E, EA);
+  const FwdBufs b = fwd_layout(ws, w, (size_t)group * T, E, F, EA);
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
@@ -769,10 +1058,10 @@ int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const 
       const bf16* Wfc2 = wfc2 + (size_t)l * F * E;
       const bf16* xin = xsave + ((size_t)(2 * l) * n + c0) * T * E;
       bf16* xmid = xsave + ((size_t)(2 * l + 1) * n + c0) * T * E;
-      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
+      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, EL, stream));
       RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wqkv, E3, M, E3, E, EpiBf16{b.qkv, E3},
                                                stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, nullptr, nullptr, nc, T, hd, stream));
+      RETURN_IF_ERROR(attention_fwd(b.qkv, b.att, nullptr, nullptr, nc, T, hd, stream));
       RETURN_IF_ERROR((gemm::run<false, false>(b.att, EA, Wproj, E, M, E, EA,
                                                EpiResid{xmid, E, xin, E}, stream)));
       const bool last = l == layers - 1;
@@ -780,7 +1069,7 @@ int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const 
         // only the last position leaves the chunk: its MLP alone
         const bf16* xm_last = xmid + (size_t)(T - 1) * E;
         RETURN_IF_ERROR(layer_norm(xm_last, (long long)T * E, g2 + (size_t)l * E, b.xn, E, nc, E,
-                                   stream));
+                                   EL, stream));
         RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, nc, F, E, EpiGelu{b.hact, F},
                                                  stream)));
         RETURN_IF_ERROR((gemm::run<false, false>(
@@ -791,7 +1080,7 @@ int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const 
       }
       bf16* xnext = last ? out + (size_t)c0 * T * E
                          : xsave + ((size_t)(2 * l + 2) * n + c0) * T * E;
-      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, stream));
+      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, EL, stream));
       RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, M, F, E, EpiGelu{b.hact, F},
                                                stream)));
       RETURN_IF_ERROR((gemm::run<false, false>(b.hact, F, Wfc2, E, M, E, F,
@@ -801,13 +1090,12 @@ int forward_impl(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv, const 
   return 0;
 }
 
-template <int DH>
 int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const bf16* wproj,
                   const bf16* wfc, const bf16* wfc2, const float* g1, const float* g2, bf16* dx0,
                   float* dwqkv, float* dwproj, float* dwfc, float* dwfc2, float* dg1, float* dg2,
-                  unsigned char* ws, int n, int T, int E, Heads hd, int layers, int group,
+                  unsigned char* ws, int n, int T, int EL, Heads hd, int layers, int group,
                   cudaStream_t stream) {
-  const int EA = hd.EA, E3 = 3 * EA, F = 4 * E;
+  const int E = stored(EL), EA = hd.EA, E3 = 3 * EA, F = stored(4 * EL);
   RETURN_IF_ERROR(cudaMemsetAsync(dwqkv, 0, (size_t)layers * E * E3 * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dwproj, 0, (size_t)layers * EA * E * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dwfc, 0, (size_t)layers * E * F * 4, stream));
@@ -815,7 +1103,7 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
   RETURN_IF_ERROR(cudaMemsetAsync(dg1, 0, (size_t)layers * E * 4, stream));
   RETURN_IF_ERROR(cudaMemsetAsync(dg2, 0, (size_t)layers * E * 4, stream));
   Workspace w;
-  const BwdBufs b = bwd_layout(ws, w, group, T, E, hd);
+  const BwdBufs b = bwd_layout(ws, w, group, T, E, F, hd);
   for (int c0 = 0; c0 < n; c0 += group) {
     const int nc = n - c0 < group ? n - c0 : group;
     const int M = nc * T;
@@ -833,7 +1121,7 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       const bf16* xmid = xsave + ((size_t)(2 * l + 1) * n + c0) * T * E;
 
       // MLP backward (recompute xn2, hmid, hact)
-      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, stream));
+      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, EL, stream));
       RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, M, F, E,
                                                EpiF32Gelu{b.hact, F, b.hmid, M, F}, stream)));
       RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, M, b.partial, dwfc2 + (size_t)l * F * E,
@@ -845,22 +1133,22 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       RETURN_IF_ERROR((gemm::run<false, true>(b.dh, F, Wfc, F, M, E, F, EpiF32{b.dxn, E, 0},
                                               stream)));
       ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xmid, g2 + (size_t)l * E, b.dxn, b.dx, b.dxb,
-                                                     b.mu, b.rs, M, E);
+                                                     b.mu, b.rs, M, E, EL);
       RETURN_IF_ERROR(cudaGetLastError());
       RETURN_IF_ERROR(gain_grad(xmid, b.dxn, b.mu, b.rs, M, E, b.partial, dg2 + (size_t)l * E,
                                 stream));
 
       // attention backward (recompute xn1, q|k|v, att and p)
-      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, stream));
+      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, EL, stream));
       RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wqkv, E3, M, E3, E, EpiBf16{b.qkv, E3},
                                                stream)));
-      RETURN_IF_ERROR(attention_fwd<DH>(b.qkv, b.att, b.m, b.l, nc, T, hd, stream));
+      RETURN_IF_ERROR(attention_fwd(b.qkv, b.att, b.m, b.l, nc, T, hd, stream));
       RETURN_IF_ERROR(weight_grad(b.att, b.dxb, EA, E, M, b.partial, dwproj + (size_t)l * EA * E,
                                   stream));
       RETURN_IF_ERROR((gemm::run<false, true>(b.dxb, E, Wproj, E, M, EA, E, EpiBf16{b.datt, EA},
                                               stream)));
-      RETURN_IF_ERROR(attention_bwd<DH>(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, hd,
-                                        stream));
+      RETURN_IF_ERROR(attention_bwd(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, hd,
+                                    stream));
       RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, M, b.partial, dwqkv + (size_t)l * E * E3,
                                   stream));
       RETURN_IF_ERROR((gemm::run<false, true>(b.dqkv, E3, Wqkv, E3, M, E, E3,
@@ -868,7 +1156,7 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       // the bottom layer's bf16(dx) is the chunk's output
       bf16* dxb_out = l == 0 ? dx0 + (size_t)c0 * T * E : b.dxb;
       ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xin, g1 + (size_t)l * E, b.dxn, b.dx,
-                                                     dxb_out, b.mu, b.rs, M, E);
+                                                     dxb_out, b.mu, b.rs, M, E, EL);
       RETURN_IF_ERROR(cudaGetLastError());
       RETURN_IF_ERROR(gain_grad(xin, b.dxn, b.mu, b.rs, M, E, b.partial, dg1 + (size_t)l * E,
                                 stream));
@@ -888,9 +1176,9 @@ long long fused_train_workspace(int kind, int group, int T, int E, int H) {
   Workspace w;
   const Heads hd = heads_of(E, H);
   if (kind == 0)
-    fwd_layout(nullptr, w, (size_t)group * T, E, hd.EA);
+    fwd_layout(nullptr, w, (size_t)group * T, stored(E), stored(4 * E), hd.EA);
   else
-    bwd_layout(nullptr, w, group, T, E, hd);
+    bwd_layout(nullptr, w, group, T, stored(E), stored(4 * E), hd);
   return (long long)w.bytes;
 }
 
@@ -907,10 +1195,8 @@ int fused_train_forward(const bf16* x, bf16* out, bf16* xsave, const bf16* wqkv,
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   const Heads hd = heads_of(E, H);
-  return with_head_dim(hd.EA / H, [&](auto dp) {
-    return forward_impl<decltype(dp)::value>(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws,
-                                             n, T, E, hd, layers, last_only, group, stream);
-  });
+  return forward_impl(x, out, xsave, wqkv, wproj, wfc, wfc2, g1, g2, ws, n, T, E, hd, layers,
+                      last_only, group, stream);
 }
 
 // Backward of a chunk: xsave [2 layers, n, T, E] and dxin [n, T, E] (the
@@ -925,11 +1211,8 @@ int fused_train_backward(const bf16* xsave, const bf16* dxin, const bf16* wqkv,
   if (!shape_ok(T, E, H) || group <= 0 || layers <= 0) return (int)cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   const Heads hd = heads_of(E, H);
-  return with_head_dim(hd.EA / H, [&](auto dp) {
-    return backward_impl<decltype(dp)::value>(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0,
-                                              dwqkv, dwproj, dwfc, dwfc2, dg1, dg2, ws, n, T, E,
-                                              hd, layers, group, stream);
-  });
+  return backward_impl(xsave, dxin, wqkv, wproj, wfc, wfc2, g1, g2, dx0, dwqkv, dwproj, dwfc,
+                       dwfc2, dg1, dg2, ws, n, T, E, hd, layers, group, stream);
 }
 
 // The GEMM alone, for its checks and its timing beside cuBLAS: C [M, N] =

@@ -1,6 +1,6 @@
 """Episode metrics per env: CSR / ISR / SoC / makespan / ep_length.
 
-Port of ``mapf_gpt_tpu/envs/metrics.py`` (one-shot MAPF):
+Port of ``mapf_gpt_tpu/envs/metrics.py``:
 
 - ISR: fraction of active agents standing on their goal at episode end.
 - CSR: 1.0 iff every active agent is on its goal at episode end.
@@ -11,6 +11,8 @@ Port of ``mapf_gpt_tpu/envs/metrics.py`` (one-shot MAPF):
 - ep_length: the step at which all agents were first on goal at once, or
   ``max_episode_steps`` on truncation.
 - agents_density: active agents / free cells.
+- throughput: lifelong goals reached per step (pogema's avg_throughput; 0
+  for on_target="nothing").
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ class EpisodeMetrics(NamedTuple):
     makespan: torch.Tensor        # f32 [B]
     ep_length: torch.Tensor       # f32 [B]
     agents_density: torch.Tensor  # f32 [B]
+    throughput: torch.Tensor      # f32 [B]
 
 
 def episode_metrics(state: EnvState) -> EpisodeMetrics:
@@ -48,4 +51,5 @@ def episode_metrics(state: EnvState) -> EpisodeMetrics:
         makespan=cost.max(-1).values.float(),
         ep_length=state.ep_len.float(),
         agents_density=active.sum(-1).float() / free_cells,
+        throughput=state.goals_reached.sum(-1).float() / state.t.clamp(min=1).float(),
     )

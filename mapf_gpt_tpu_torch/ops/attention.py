@@ -16,9 +16,9 @@ Port of ``mapf_gpt_tpu/ops/attention.py``:
 - :func:`attention` dispatches as the JAX one does: "pallas" goes to the
   kernel, anything else to the plain version.
 
-The kernel takes any T >= 1 and any D from 1 to 128, bf16 or fp32
-(:func:`check_shape`).  In bf16 its tiles are 16 columns wide: for a D
-that is not a multiple of 16 the wrapper pads q, k and v with zero columns
+The kernel takes any T >= 1 and any D from 1 to 128, bf16, fp16 or fp32
+(:func:`check_shape`).  In bf16 and fp16 its tiles are 16 columns wide: for
+a D that is not a multiple of 16 the wrapper pads q, k and v with zero columns
 (which change neither the scores nor the first D outputs) and returns the
 first D columns.  It reads q, k and v through their strides (the last dim
 contiguous, the others multiples of 16 bytes), so the module's views of
@@ -35,7 +35,7 @@ import functools
 import torch
 
 _D_MAX = 128
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}   # the kernel's codes
 
 launches = 0   # kernel launches by attention_pallas; callers may reset it to 0
 
@@ -56,7 +56,7 @@ def check_shape(t: int, d: int, dtype: torch.dtype) -> None:
     if not 1 <= d <= _D_MAX:
         raise ValueError(f"attention: head dim must be 1..{_D_MAX}; got {d}")
     if dtype not in _DTYPES:
-        raise ValueError(f"attention: dtype must be bfloat16 or float32; got {dtype}")
+        raise ValueError(f"attention: dtype must be bfloat16, float16 or float32; got {dtype}")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -112,7 +112,7 @@ def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention: q, k, v must share a dtype and a device")
     b, h, t, d = q.shape
     check_shape(t, d, q.dtype)
-    dp = -(-d // 16) * 16 if q.dtype == torch.bfloat16 else d   # bf16 tiles: 16 columns
+    dp = d if q.dtype == torch.float32 else -(-d // 16) * 16   # 16-bit tiles: 16 columns
     q, k, v = (_kernel_ready(x, dp) for x in (q, k, v))
     buf = torch.empty((b, t, h, dp), dtype=q.dtype, device=q.device)
     out = buf.permute(0, 2, 1, 3)

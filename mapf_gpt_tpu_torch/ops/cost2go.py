@@ -5,11 +5,21 @@ results (4-connected unit-cost BFS):
 
 - :func:`cost2go_host` — numpy BFS, the parity oracle.
 - :func:`cost2go_device` — batched sweep relaxation on the tensors' device.
-  Each round runs four directional sweeps (down/up/right/left), each a loop
-  over the rows or columns, vectorized over the other axis and the batch of
-  goals.  Rounds repeat until a round changes nothing; that check reads one
-  flag back to the host per round, which is fine at reset, the only caller
-  in this slice.
+  Each round runs four directional sweeps (down/up/right/left), vectorized
+  over the other axis and the batch of goals.  Rounds repeat until a round
+  changes nothing; that check reads one flag back to the host per round.
+
+A sweep is the JAX package's ``lax.scan`` of d[i] = min(d[i], d[i-1] + 1)
+over free cells (INF on obstacles), computed as a segmented cumulative
+minimum: within a run of free cells it is min over j <= i of d[j] + (i - j),
+that is cummin(d - j) + i, and an offset per run keeps each run's minimum
+from reaching across an obstacle.  The integers are exactly the scan's
+(``tests/test_torch_cost2go.py`` holds it against a loop over the rows and
+against JAX); it costs a few launches a sweep instead of a few per row,
+which matters where the lazy lifelong env relaxes its fields in every step
+(``envs/env.step``).  :func:`relax_fixpoint_rows` is that loop over the
+rows, the plain version the tests and ``chip_smoke.py`` hold the sweep
+against.
 
 Convention: fields are int32, ``-1`` marks unreachable cells and obstacles.
 """
@@ -22,6 +32,10 @@ import numpy as np
 import torch
 
 INF = 1 << 20  # internal "unreached" marker during relaxation
+# Offset between runs of free cells in a sweep: more than any d - j within a
+# run (d <= INF, j < the grid's side), so an earlier run's keys are all larger.
+_RUN = 1 << 22
+_NEVER = 1 << 62   # the key of an obstacle cell: never a run's minimum
 
 
 def cost2go_host(grid: np.ndarray, goal: tuple[int, int]) -> np.ndarray:
@@ -43,39 +57,80 @@ def cost2go_host(grid: np.ndarray, goal: tuple[int, int]) -> np.ndarray:
     return dist
 
 
-def _sweep(dist: torch.Tensor, free: torch.Tensor, axis: int,
-           reverse: bool) -> torch.Tensor:
-    """One directional sweep along `axis` (-2 rows, -1 columns):
-    d[i] = min(d[i], d[i-1] + 1) on free cells, INF on obstacles."""
-    d = dist.movedim(axis, 0)
-    f = free.movedim(axis, 0)
-    out = torch.empty_like(d)
-    carry = torch.full_like(d[0], INF)
-    order = range(d.shape[0] - 1, -1, -1) if reverse else range(d.shape[0])
-    inf = torch.tensor(INF, dtype=d.dtype, device=d.device)
-    for i in order:
-        carry = torch.where(f[i], torch.minimum(d[i], carry + 1), inf)
-        out[i] = carry
-    return out.movedim(0, axis)
+# A round's four sweeps, in the JAX package's order: down, up, right, left.
+_SWEEPS = ((-2, False), (-2, True), (-1, False), (-1, True))
 
 
-def _relax_round(dist: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
-    dist = _sweep(dist, free, axis=-2, reverse=False)  # down
-    dist = _sweep(dist, free, axis=-2, reverse=True)   # up
-    dist = _sweep(dist, free, axis=-1, reverse=False)  # right
-    dist = _sweep(dist, free, axis=-1, reverse=True)   # left
-    return dist
+def _run_offsets(free: torch.Tensor, axis: int) -> torch.Tensor:
+    """int64 offset of each cell along `axis`: its index j plus _RUN times
+    the number of obstacles before it (so a run's cells share the second
+    term, and a later run's is larger)."""
+    n = free.shape[axis]
+    shape = [1] * free.dim()
+    shape[axis] = n
+    j = torch.arange(n, device=free.device).view(shape)
+    return torch.cumsum(~free, dim=axis, dtype=torch.int64) * _RUN + j
+
+
+def _sweep(dist: torch.Tensor, free: torch.Tensor, offset: torch.Tensor,
+           axis: int) -> torch.Tensor:
+    """One forward sweep along `axis` (-2 rows, -1 columns): d[i] =
+    min(d[i], d[i-1] + 1) on free cells, INF on obstacles, as the segmented
+    cumulative minimum of d - offset (offset from :func:`_run_offsets`)."""
+    key = torch.where(free, dist.long() - offset, _NEVER)
+    best = torch.cummin(key, dim=axis).values + offset
+    return torch.where(free, best, INF).to(torch.int32)
 
 
 def relax_fixpoint(dist0: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     """Repeat relaxation rounds until one changes nothing.
 
-    dist0: int32 [..., H, W] seed distances (INF = unreached); free: bool,
-    same shape."""
-    dist = _relax_round(dist0, free)
+    dist0: int32 [..., H, W] seed distances (INF = unreached; obstacles may
+    carry any value, each sweep sets them to INF); free: bool, same shape.
+    A seed that is already a fixpoint costs one round."""
+    # a backward sweep is a forward sweep of the flipped tensors
+    plan = []
+    for axis, reverse in _SWEEPS:
+        f = free.flip(axis) if reverse else free
+        plan.append((axis, reverse, f, _run_offsets(f, axis)))
+
+    def relax_round(dist: torch.Tensor) -> torch.Tensor:
+        for axis, reverse, f, offset in plan:
+            if reverse:
+                dist = _sweep(dist.flip(axis), f, offset, axis).flip(axis)
+            else:
+                dist = _sweep(dist, f, offset, axis)
+        return dist
+
+    dist = relax_round(dist0)
     changed = bool((dist != dist0).any())
     while changed:
-        new = _relax_round(dist, free)
+        new = relax_round(dist)
+        changed = bool((new != dist).any())
+        dist = new
+    return dist
+
+
+def relax_fixpoint_rows(dist0: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """:func:`relax_fixpoint` as the JAX package's ``lax.scan`` writes it:
+    each sweep a loop over the rows (or columns), the same integers."""
+    def sweep(d: torch.Tensor, axis: int, reverse: bool) -> torch.Tensor:
+        d, f = d.movedim(axis, 0), free.movedim(axis, 0)
+        out, carry = torch.empty_like(d), torch.full_like(d[0], INF)
+        for i in (range(d.shape[0] - 1, -1, -1) if reverse else range(d.shape[0])):
+            carry = torch.where(f[i], torch.minimum(d[i], carry + 1), INF)
+            out[i] = carry
+        return out.movedim(0, axis)
+
+    def relax_round(dist: torch.Tensor) -> torch.Tensor:
+        for axis, reverse in _SWEEPS:
+            dist = sweep(dist, axis, reverse)
+        return dist
+
+    dist = relax_round(dist0)
+    changed = bool((dist != dist0).any())
+    while changed:
+        new = relax_round(dist)
         changed = bool((new != dist).any())
         dist = new
     return dist

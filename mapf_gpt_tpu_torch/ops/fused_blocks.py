@@ -24,11 +24,15 @@ The kernel is built for the width of the stacks it is given, on first use:
 the 85M's (E=768, head dim 64) from the source as it stands, any other as a
 library of its own (``-DFUSED_BLOCKS_E``, ``-DFUSED_BLOCKS_DH``); T is a
 runtime argument.  :func:`check_width` raises, before ``nvcc`` starts, for
-a width the kernel cannot hold: n_embd not a multiple of 8 (the GEMM's TMA
-wants 16-byte row strides) or a head dim past 128 (the attention tiles'
-widest).  A head dim that is not a multiple of 16 runs with each head's
-q|k|v columns and projection rows padded with zeros to one
-(:func:`pad_heads`).  The plain version takes any shape.
+a width the kernel cannot hold: a head dim past 512.  The kernels take
+their operands in a padded layout (:func:`kernel_layout`), whose zero
+columns and rows change no product: each head's q|k|v columns and
+projection rows padded to :func:`padded_head_dim` (a multiple of 16, and
+for a head past 128 columns, slabs of at most 128 that the attention runs
+one at a time), and an n_embd or 4 n_embd that is not a multiple of 8 (the
+GEMM's TMA wants 16-byte row strides) padded to one, with the residual
+stream; LayerNorm takes its statistics over the true n_embd.  The plain
+version takes any shape.
 """
 
 from __future__ import annotations
@@ -122,7 +126,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _DEFAULT_WIDTH = (768, 64)   # (n_embd, head dim) the source builds with no defines
-_MAX_HEAD_DIM = 128          # the attention tiles' widest head
+_MAX_HEAD_DIM = 512          # the widest head whose slabs' windows fit shared memory
+_SLAB = 128                  # the attention tiles' widest head in registers
 
 
 def check_width(t: int, e: int, n_head: int) -> None:
@@ -136,14 +141,20 @@ def check_width(t: int, e: int, n_head: int) -> None:
     dh = e // n_head
     if dh > _MAX_HEAD_DIM:
         raise ValueError(f"fused_blocks: head dim must be at most {_MAX_HEAD_DIM}; got {dh}")
-    if e % 8:
-        raise ValueError(f"fused_blocks: n_embd must be a multiple of 8 (the GEMM's 16-byte "
-                         f"row strides); got {e}")
 
 
 def padded_head_dim(dh: int) -> int:
-    """A head's width in the kernels' layout: dh rounded up to 16."""
-    return -(-dh // 16) * 16
+    """A head's width in the kernels' layout: dh rounded up to 16, or for a
+    head past 128 columns, NS slabs of the same width (a multiple of 16 of
+    at most 128), NS = ceil(dh / 128) (csrc/fused_blocks.cu's DP)."""
+    ns = -(-dh // _SLAB)
+    return ns * (-(-(-(-dh // ns)) // 16) * 16)
+
+
+def stored_width(n: int) -> int:
+    """n rounded up to 8: how the kernels store n_embd and 4 n_embd columns
+    (TMA's 16-byte row strides)."""
+    return -(-n // 8) * 8
 
 
 def pad_heads(wqkv: torch.Tensor, wproj: torch.Tensor, n_head: int):
@@ -160,6 +171,28 @@ def pad_heads(wqkv: torch.Tensor, wproj: torch.Tensor, n_head: int):
     wproj = F.pad(wproj.reshape(layers, n_head, dh, e), (0, 0, 0, dp - dh))
     return (wqkv.reshape(layers, e, 3 * n_head * dp).contiguous(),
             wproj.reshape(layers, n_head * dp, e).contiguous())
+
+
+def kernel_layout(stacks) -> tuple[torch.Tensor, ...]:
+    """The six stacks of a LayerStacks (or TrainStacks) as the kernels take
+    them: heads padded (:func:`pad_heads`), then n_embd and 4 n_embd padded
+    to :func:`stored_width` with zero rows, columns and gains (the stacks
+    themselves where nothing needs padding)."""
+    wqkv, wproj = pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head)
+    wfc, wfc2, g1, g2 = stacks[2:6]
+    e = g1.shape[-1]
+    pe, pf = stored_width(e) - e, stored_width(4 * e) - 4 * e
+    if pe == pf == 0:
+        return wqkv, wproj, wfc, wfc2, g1, g2
+    return (F.pad(wqkv, (0, 0, 0, pe)), F.pad(wproj, (0, pe)), F.pad(wfc, (0, pf, 0, pe)),
+            F.pad(wfc2, (0, pe, 0, pf)), F.pad(g1, (0, pe)), F.pad(g2, (0, pe)))
+
+
+def pad_width(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream [..., E] with zero columns to stored_width(E)
+    (x itself when E is a multiple of 8)."""
+    e = x.shape[-1]
+    return x if stored_width(e) == e else F.pad(x, (0, stored_width(e) - e))
 
 
 def kernel_defines(e: int, n_head: int) -> dict[str, int]:
@@ -229,11 +262,15 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
             ("g1", stacks.g1, torch.float32, (layers, e)),
             ("g2", stacks.g2, torch.float32, (layers, e))):
         check_tensor("fused_blocks", name, ten, dtype, shape, dev)
-    stream_x = x.clone()   # the kernel updates the residual stream in place
-    out = torch.empty((n, 1, e), dtype=torch.bfloat16, device=dev) if last_only else stream_x
+    # the kernel updates the residual stream in place, in its stored width
+    stream_x = pad_width(x)
+    if stream_x is x:
+        stream_x = x.clone()
+    es = stream_x.shape[-1]
+    out = torch.empty((n, 1, es), dtype=torch.bfloat16, device=dev) if last_only else stream_x
     if n == 0:
-        return out
-    wqkv, wproj = pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head)
+        return out[..., :e]
+    wqkv, wproj, wfc, wfc2, g1, g2 = kernel_layout(stacks)
     group = min(n, GROUP)
     workspace = torch.empty(lib.fused_blocks_workspace(group, t), dtype=torch.bfloat16,
                             device=dev)
@@ -241,11 +278,10 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
     with torch.cuda.device(dev):
         rc = lib.fused_blocks_forward(
             stream_x.data_ptr(), out.data_ptr(), wqkv.data_ptr(), wproj.data_ptr(),
-            stacks.wfc.data_ptr(), stacks.wfc2.data_ptr(), stacks.g1.data_ptr(),
-            stacks.g2.data_ptr(), workspace.data_ptr(), n, t, layers, int(last_only), group,
-            stream)
+            wfc.data_ptr(), wfc2.data_ptr(), g1.data_ptr(), g2.data_ptr(), workspace.data_ptr(),
+            n, t, layers, int(last_only), group, stream)
     if rc != 0:
         raise RuntimeError("fused_blocks kernel launch failed: "
                            f"{lib.fused_blocks_error_string(rc).decode()} ({rc})")
     launches += 1
-    return out
+    return out if es == e else out[..., :e].contiguous()

@@ -47,8 +47,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mapf_gpt_tpu_torch.ops.fused_blocks import (check_tensor, ln_f32, pad_heads,
-                                                 padded_head_dim)
+from mapf_gpt_tpu_torch.ops.fused_blocks import (check_tensor, kernel_layout, ln_f32,
+                                                 pad_width, padded_head_dim, stored_width)
 from mapf_gpt_tpu_torch.ops.fused_gpt import jax_index
 
 _EPS = 1e-5
@@ -233,32 +233,32 @@ def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainSt
 
 def check_train_width(t: int, e: int, n_head: int) -> None:
     """Raise ValueError, naming the constraint, unless csrc/fused_train.cu
-    takes T=t, n_embd=e and n_head heads: any T >= 1, n_embd a multiple of 8
-    (the GEMM's 16-byte row strides), head dims up to 128 (the attention
-    tiles' widest; one that is not a multiple of 16 runs padded with zero
-    columns, :func:`fused_blocks.pad_heads`)."""
+    takes T=t, n_embd=e and n_head heads: any T >= 1, any n_embd (one that is
+    not a multiple of 8 runs padded with zero columns,
+    :func:`fused_blocks.kernel_layout`), head dims up to 512 (one that is not
+    a multiple of 16 runs padded with zero columns, one past 128 in slabs,
+    :func:`fused_blocks.padded_head_dim`)."""
     if t < 1:
         raise ValueError(f"fused_train: T must be at least 1; got {t}")
     if n_head <= 0 or e % n_head:
         raise ValueError(f"fused_train: n_embd {e} is not a multiple of n_head {n_head}")
-    if e % 8:
-        raise ValueError(f"fused_train: n_embd must be a multiple of 8; got {e}")
     dh = e // n_head
-    if dh > 128:
-        raise ValueError(f"fused_train: head dim must be from 1 up to 128; got {dh}")
+    if dh > 512:
+        raise ValueError(f"fused_train: head dim must be from 1 up to 512; got {dh}")
 
 
-def _unpad_heads(dwqkv: torch.Tensor, dwproj: torch.Tensor, n_head: int):
-    """The gradients of :func:`fused_blocks.pad_heads`' padded stacks back in
-    the stacks' shapes: the zero columns and rows dropped."""
-    layers, e, _ = dwqkv.shape
+def _unpad_grads(grads: tuple, e: int, n_head: int) -> tuple:
+    """The gradients of :func:`fused_blocks.kernel_layout`'s padded stacks
+    (n_embd e) back in the stacks' shapes: the zero columns and rows
+    dropped."""
+    dwqkv, dwproj, dwfc, dwfc2, dg1, dg2 = grads
+    layers = dg1.shape[0]
     dh = e // n_head
     dp = padded_head_dim(dh)
-    if dp == dh:
-        return dwqkv, dwproj
-    dwqkv = dwqkv.reshape(layers, e, 3, n_head, dp)[..., :dh].reshape(layers, e, 3 * e)
-    dwproj = dwproj.reshape(layers, n_head, dp, e)[:, :, :dh].reshape(layers, e, e)
-    return dwqkv.contiguous(), dwproj.contiguous()
+    dwqkv = dwqkv[:, :e].reshape(layers, e, 3, n_head, dp)[..., :dh].reshape(layers, e, 3 * e)
+    dwproj = dwproj[..., :e].reshape(layers, n_head, dp, e)[:, :, :dh].reshape(layers, e, e)
+    return tuple(g.contiguous() for g in (dwqkv, dwproj, dwfc[:, :e, :4 * e],
+                                          dwfc2[:, :4 * e, :e], dg1[:, :e], dg2[:, :e]))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -331,21 +331,25 @@ def train_forward(x: torch.Tensor, stacks: TrainStacks, last_only: bool):
     check_tensor("fused_train", "x", x, torch.bfloat16, (n, t, e), dev)
     layers = _check_stacks(stacks, e, dev)
     lib = _library()
-    xsave = torch.empty((2 * layers, n, t, e), dtype=torch.bfloat16, device=dev)
-    out = torch.empty((n, e) if last_only else (n, t, e), dtype=torch.bfloat16, device=dev)
+    es = stored_width(e)   # the kernels' stored width; zero columns past e
+    xsave = torch.empty((2 * layers, n, t, es), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n, es) if last_only else (n, t, es), dtype=torch.bfloat16, device=dev)
     if n == 0:
-        return out, xsave
+        return out[..., :e], xsave[..., :e]
     group = min(n, GROUP)
     ws = _workspace(lib, 0, group, t, e, stacks.n_head, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    weights = (*pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head), *stacks[2:6])
+    weights = kernel_layout(stacks)
+    xk = pad_width(x)
     with torch.cuda.device(dev):
         rc = lib.fused_train_forward(
-            x.data_ptr(), out.data_ptr(), xsave.data_ptr(), *(w.data_ptr() for w in weights),
+            xk.data_ptr(), out.data_ptr(), xsave.data_ptr(), *(w.data_ptr() for w in weights),
             ws.data_ptr(), n, t, e, stacks.n_head, layers, int(last_only), group, stream)
     _raise_on(lib, rc, "forward")
     fwd_launches += 1
-    return out, xsave
+    if es == e:
+        return out, xsave
+    return out[..., :e].contiguous(), xsave[..., :e].contiguous()
 
 
 def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks):
@@ -366,22 +370,24 @@ def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks)
     check_tensor("fused_train", "xsave", xsave, torch.bfloat16, (2 * layers, n, t, e), dev)
     check_tensor("fused_train", "dxin", dxin, torch.bfloat16, (n, t, e), dev)
     lib = _library()
-    dx = torch.empty((n, t, e), dtype=torch.bfloat16, device=dev)
-    weights = (*pad_heads(stacks.wqkv, stacks.wproj, stacks.n_head), *stacks[2:6])
+    es = stored_width(e)
+    dx = torch.empty((n, t, es), dtype=torch.bfloat16, device=dev)
+    weights = kernel_layout(stacks)
     grads = tuple(torch.zeros(w.shape, dtype=torch.float32, device=dev) for w in weights)
     if n == 0:
-        return dx, (*_unpad_heads(*grads[:2], stacks.n_head), *grads[2:])
+        return dx[..., :e], _unpad_grads(grads, e, stacks.n_head)
     group = min(n, GROUP)
     ws = _workspace(lib, 1, group, t, e, stacks.n_head, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    xsave_k, dxin_k = pad_width(xsave), pad_width(dxin)
     with torch.cuda.device(dev):
         rc = lib.fused_train_backward(
-            xsave.data_ptr(), dxin.data_ptr(), *(w.data_ptr() for w in weights),
+            xsave_k.data_ptr(), dxin_k.data_ptr(), *(w.data_ptr() for w in weights),
             dx.data_ptr(), *(g.data_ptr() for g in grads), ws.data_ptr(), n, t, e,
             stacks.n_head, layers, group, stream)
     _raise_on(lib, rc, "backward")
     bwd_launches += 1
-    return dx, (*_unpad_heads(*grads[:2], stacks.n_head), *grads[2:])
+    return (dx if es == e else dx[..., :e].contiguous()), _unpad_grads(grads, e, stacks.n_head)
 
 
 def gemm_tile(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_k: bool = False,

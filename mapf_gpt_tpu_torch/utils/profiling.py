@@ -98,3 +98,13 @@ def kernel_times(fn, reps: int) -> list[tuple[float, float, str]]:
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev_us / 1e3 / reps, ev.count / reps, ev.key))
     return sorted(rows, reverse=True)
+
+
+def kernel_key(name: str) -> str:
+    """A kernel's short name from the demangled name the profiler records:
+    the function's own name, after the last ``::`` of its qualified name and
+    before its template arguments or parameters, so that
+    ``void (anonymous namespace)::attn_bwd_q_kernel<32>(...)`` gives
+    ``attn_bwd_q_kernel`` and kernels of one namespace stay apart."""
+    head = name.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
+    return head.split("::")[-1].split()[-1] if head.split() else name

@@ -13,7 +13,7 @@ inputs:
 - ``attention`` dispatches as the JAX one: "pallas" to the kernel's
   wrapper, anything else to the plain version;
 - ``check_shape`` takes the shapes the CUDA kernel takes (any T >= 1, any
-  head dim 1..128, bf16 or fp32) and names the constraint of any other,
+  head dim 1..128, bf16, fp16 or fp32) and names the constraint of any other,
   without building anything; the same comparison with JAX runs at T = 300
   and 512 and at head dims 8, 24 and 72, which the kernel now takes;
 - the wrapper's zero columns (bf16 heads padded to a multiple of 16) change
@@ -109,7 +109,8 @@ def test_attention_dispatch_and_devices(monkeypatch):
     (256, 96, torch.float32, None), (0, 32, torch.bfloat16, "T must be"),
     (257, 32, torch.bfloat16, None), (256, 8, torch.bfloat16, None),
     (256, 24, torch.bfloat16, None), (256, 144, torch.float32, "head dim"),
-    (256, 32, torch.float16, "dtype"), (1024, 72, torch.float32, None),
+    (256, 32, torch.float16, None), (256, 32, torch.float64, "dtype"),
+    (1024, 72, torch.float32, None),
     (300, 1, torch.bfloat16, None), (256, 0, torch.bfloat16, "head dim"),
 ])
 def test_check_shape(t, d, dtype, match):

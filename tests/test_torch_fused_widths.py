@@ -7,9 +7,10 @@ ids, without a CUDA toolkit:
   and ``e2e_unfit`` holds the e2e kernel's shape rules, without building
   anything; a shape the e2e kernel cannot take (head dims 8 or 16 past
   its width, n_embd 336 or 4096, T past 256) is planned on the layer-stack
-  kernel, still without a build, and a shape neither kernel can hold
-  (n_embd not a multiple of 8, a head dim past 128, T below 1) raises
-  ``ValueError`` naming the constraint, before ``nvcc`` would start;
+  kernel, still without a build (n_embd not a multiple of 8 and head dims
+  past 128 among them), and a shape neither kernel can hold (heads that do
+  not divide n_embd, a head dim past 512, T below 1) raises ``ValueError``
+  naming the constraint, before ``nvcc`` would start;
 - ``_build`` passes a caller's defines to ``nvcc`` and keys the library by
   them (a stand-in ``nvcc`` plays the compiler);
 - the e2e route run as three steps (the plain bf16 embedding,
@@ -93,10 +94,12 @@ def test_e2e_chunk_reproduces_the_published_builds():
     (4096, 256, 256, None),            # 256 heads: the thin attention streams its keys
     (160, 5, 300, None),               # past the e2e kernel's T
     (320, 10, 200, None),              # past the e2e kernel's width, T != 256
+    (250, 5, 256, None),               # n_embd stored padded to 256 (TMA's 16-byte rows)
+    (196, 7, 256, None),
+    (1032, 4, 256, None),              # head dim 258: three slabs of 96 columns
     # still refused
-    (250, 5, 256, "multiple of 8"),    # TMA's 16-byte row strides
-    (196, 7, 256, "multiple of 8"),
-    (1032, 4, 256, "head dim must be at most 128"),
+    (1040, 2, 256, "head dim must be at most 512"),
+    (250, 3, 256, "not a multiple of n_head"),
     (160, 5, 0, "T must be at least 1"),
 ])
 def test_unsupported_width_raises_before_any_build(monkeypatch, e, h, t, match):
@@ -123,10 +126,12 @@ def test_blocks_width_checks():
     fused_blocks.check_width(200, 200, 25)     # head dim 8, n_embd 200
     with pytest.raises(ValueError, match="T must be at least 1"):
         fused_blocks.check_width(0, 768, 12)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fused_blocks.check_width(256, 770, 10)
-    with pytest.raises(ValueError, match="head dim must be at most 128"):
-        fused_blocks.check_width(256, 1040, 4)
+    fused_blocks.check_width(256, 770, 10)     # n_embd stored padded to 776
+    fused_blocks.check_width(256, 1040, 4)     # head dim 260: three slabs of 96
+    with pytest.raises(ValueError, match="not a multiple of n_head"):
+        fused_blocks.check_width(256, 770, 12)
+    with pytest.raises(ValueError, match="head dim must be at most 512"):
+        fused_blocks.check_width(256, 1040, 2)
 
 
 def test_build_passes_defines_and_keys_the_library(tmp_path, monkeypatch):

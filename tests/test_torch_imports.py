@@ -1,5 +1,8 @@
 """The port runs where JAX is absent: ``mapf_gpt_tpu_torch`` and
-``chip_smoke.py`` import neither JAX, flax nor anything of ``mapf_gpt_tpu``.
+``chip_smoke.py`` import neither JAX, flax nor anything of ``mapf_gpt_tpu``,
+and, since the GPU machine has neither, they import without PyYAML and
+matplotlib (which only the functions that read suite files and draw plots
+import).
 
 The import check runs in a subprocess with those modules blocked (a
 ``None`` entry in ``sys.modules`` makes their import fail), which is the
@@ -16,7 +19,7 @@ PORT = os.path.join(ROOT, "mapf_gpt_tpu_torch")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mapf_gpt_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mapf_gpt_tpu", "yaml", "matplotlib"):
     sys.modules[name] = None
 sys.path.insert(0, {ROOT!r})
 import mapf_gpt_tpu_torch
@@ -27,10 +30,14 @@ for name in names:
 # the modules of the kernels, the attention kernel's (the module route) among them
 assert {{"mapf_gpt_tpu_torch.ops.attention", "mapf_gpt_tpu_torch.ops.fused_gpt",
          "mapf_gpt_tpu_torch.ops.fused_blocks", "mapf_gpt_tpu_torch.ops.fused_gpt_train",
-         "mapf_gpt_tpu_torch.models.gpt"}} <= set(names), names
+         "mapf_gpt_tpu_torch.models.gpt", "mapf_gpt_tpu_torch.ops.masking",
+         "mapf_gpt_tpu_torch.bench", "mapf_gpt_tpu_torch.eval.harness",
+         "mapf_gpt_tpu_torch.eval.run", "mapf_gpt_tpu_torch.eval.benchmark",
+         "mapf_gpt_tpu_torch.eval.example", "mapf_gpt_tpu_torch.eval.report",
+         "mapf_gpt_tpu_torch.eval.animation", "mapf_gpt_tpu_torch.eval.bigmap"}} <= set(names), names
 import chip_smoke
 leaked = sorted(n for n in sys.modules
-                if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu")
+                if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu", "yaml", "matplotlib")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
 print(len(names))

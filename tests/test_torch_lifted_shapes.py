@@ -167,9 +167,11 @@ def test_padded_heads_add_only_zeros_and_change_no_score(e, h):
     torch.testing.assert_close(o.reshape(3, 5, h * dp) @ pp[0].float(),
                                o[..., :dh].reshape(3, 5, e) @ wproj[0].float(),
                                rtol=1e-5, atol=1e-4)
-    dq, dpj = fgt._unpad_heads(torch.randn(pq.shape, generator=gen),
-                               torch.randn(pp.shape, generator=gen), h)
-    assert dq.shape == wqkv.shape and dpj.shape == wproj.shape
+    stacks = fgt.TrainStacks(wqkv, wproj, torch.zeros((2, e, 4 * e)), torch.zeros((2, 4 * e, e)),
+                             torch.ones((2, e)), torch.ones((2, e)), n_head=h)
+    padded = fused_blocks.kernel_layout(stacks)
+    grads = fgt._unpad_grads(tuple(torch.randn(w.shape, generator=gen) for w in padded), e, h)
+    assert [g.shape for g in grads] == [w.shape for w in stacks[:6]]
 
 
 @pytest.mark.parametrize("e,h,t,layers", [(768, 12, 200, 12), (96, 12, 200, 2), (96, 4, 200, 2),

@@ -16,7 +16,7 @@ package (numpy in between, JAX's Pallas kernels in interpret mode):
   padding path (N=10), forced 1-layer chunks and a few SGD steps;
 - the wrappers: CPU tensors take the plain versions, other devices raise,
   and a width the kernels cannot hold raises before anything is built
-  (any T >= 1, n_embd a multiple of 8, head dims 1 to 128);
+  (any T >= 1, any n_embd, head dims 1 to 512, heads that divide n_embd);
 - a test-only emulation in plain PyTorch of the redesigned attention
   backward's order of work (``csrc/fused_train.cu``: the forward's row
   statistics, the query side's delta pass then its ds / dq pass over
@@ -242,8 +242,10 @@ def test_wrappers_take_plain_versions_on_cpu_and_raise_elsewhere(small):
     (256, 96, 1, None), (512, 256, 8, None), (256, 250, 4, "not a multiple of n_head"),
     (0, 256, 8, "T must be"), (1, 256, 8, None), (200, 768, 12, None), (257, 256, 8, None),
     (256, 256, 16, None), (256, 384, 4, None), (256, 256, 32, None),   # head dim 8
-    (256, 144, 9, None), (256, 256, 1, "up to 128"),
-    (300, 200, 25, None), (256, 100, 4, "multiple of 8"), (256, 1032, 8, "up to 128"),
+    (256, 144, 9, None), (256, 256, 1, None),   # head dim 256: two slabs of 128
+    (300, 200, 25, None), (256, 100, 4, None),  # n_embd 100: stored padded to 104
+    (256, 1032, 8, None),                       # head dim 129: two slabs of 80
+    (256, 1040, 2, "up to 512"), (256, 600, 1, "up to 512"), (256, 250, 3, "not a multiple"),
 ])
 def test_train_width_checks_before_any_build(t, e, h, match):
     if match is None:
