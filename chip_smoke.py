@@ -5,14 +5,17 @@
 
 Drives the port's main path, the batched rollout, for each published model
 (2M, 6M, 85M) and for a ``bias=True`` model on the module route through
-the attention kernel, the 6M trainer, and the suite evaluator (one-shot
-and lifelong episodes) through the entry points a user calls, and holds
-every CUDA kernel of those paths against its plain PyTorch version.  Phases, one line each (flushed); phase 12 runs right
+the attention kernel, the 6M trainer, the suite evaluator (one-shot and
+lifelong episodes), and the expert-data path (the LaCAM* solver, shards
+generated on the card, the 85M trainer on them, ``--distributed``) through
+the entry points a user calls, and holds every CUDA kernel of those paths
+against its plain PyTorch version.  Phases, one line each (flushed); phase 12 runs right
 after phase 2, so that a faulty attention kernel fails within seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
 2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, and the
-   widths of phases 7 and 8, one nvcc each, all started together; build
+   widths of phases 7 and 8, one nvcc each, and the LaCAM* solver library
+   (``dataset/_lacam_build.py``, g++), all started together; build
    seconds and ptxas' register report.  Then (phase 2b) the layer
    kernels' shared GEMM (``csrc/gemm_tile.cuh``, through
    ``fused_gpt_train.gemm_tile``) against an fp32 product of the same bf16
@@ -149,10 +152,44 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    (``relax_fixpoint_rows``, the JAX ``lax.scan``'s form; equal); the bench
    workload's step (256 envs x 32 agents) split the same way; and one
    ``make_recorded_rollout`` with ``mask_greed_action`` on.  About 5 s.
+17. The solver: its build seconds (phase 2), then a 21-cell maze with 32
+   agents solved (first solution, anytime off) and its paths checked:
+   from the starts to the goals, moves to neighbours on free cells, no
+   shared cell, no swap.  About 1 s.
+18. Generation on the card: ``dataset.generate.generate_shards`` in the
+   reference's training distribution (agents 16, 24 or 32, maps 17, 19 or
+   21, 90 % mazes, one anytime solve of 1 s an instance) into 4,096 train
+   and 1,024 validation samples; episodes, samples/s and the solver's and
+   the replay's shares of the wall time.  Every target in 0..4 (no wait
+   marker left), every token in the vocabulary, every episode's wait
+   share at most ``max_wait_frac`` after ``balance_waits``, and the
+   shards' share within 3 binomial standard deviations of it (a shard is
+   a random subset of the balanced samples); one episode's replay on the
+   card equal to the CPU's, tokens and targets.  Host-bound: about 20 s.
+19. The 85M trainer on those shards: ``train.loop.train --model 85M
+   --batch-size 512 --grad-accum 2``, 6 iterations, eval every 3; the
+   training kernels' counters, set to 0 just before, one forward and 12
+   backward chunks a micro-batch; every loss finite, the last
+   ``LOSS_DROP_85M`` below the first; peak memory beside
+   ``MEM_85M_ESTIMATE``; the newest checkpoint loads with
+   ``load_reference_checkpoint`` and drives one rollout step through the
+   layer-stack kernel.  Then iterations at the reference shape (512 x
+   16): a first, untimed, with the counters set to 0 before it and read
+   after it (16 forward and 192 backward launches), and two timed, their
+   median giving it/s and MFU.  Last the kernels alone at the 512
+   contexts a micro-batch the trainer gives them, 12 layers: the forward's
+   out and saves against its plain version (``TRAIN_PLAIN_CHUNK``
+   contexts a call, within 0.02 * max|ref| + 0.02 per channel), each of
+   the 12 backward chunks against its plain version (within 0.08 *
+   max|ref| + 1e-4, the second launch equal to the first), then timed
+   beside the plain versions and their bounds.
+20. ``--distributed`` at world size 1 over NCCL: two 6M iterations whose
+   losses equal a run without it from the same seed.
 
-Then an ``[evaluator]`` line with phase 16's numbers, the card's name and
-power limit, the kernels' JSON line and, last, ``{"ok": true, "device":
-{...}}``.
+Then an ``[expert data]`` line with phases 17-20's numbers, an
+``[evaluator]`` line with phase 16's, the card's name and power limit, the
+kernels' JSON line (the training kernels' entries with their 85M numbers
+under ``"85M"``) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
 so it does without a GPU, and outside a checkout of the repository.
 """
@@ -160,10 +197,13 @@ so it does without a GPU, and outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -176,13 +216,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from mapf_gpt_tpu_torch.dataset import _lacam_build, expert, generate  # noqa: E402
 from mapf_gpt_tpu_torch.envs import env as menv  # noqa: E402
 from mapf_gpt_tpu_torch.eval.harness import EpisodeSpec, Evaluator  # noqa: E402
 from mapf_gpt_tpu_torch.maps import (MapRegistry, maze_grid, random_grid,  # noqa: E402
                                      sample_instance, warehouse_grid)
 from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
                                                load_reference_checkpoint)
-from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPTConfig, act,  # noqa: E402
+from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig, act,  # noqa: E402
                                            init_params, make_forward)
 from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
 from mapf_gpt_tpu_torch.ops import attention as tatt  # noqa: E402
@@ -190,11 +231,13 @@ from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt  # noqa: E402
 from mapf_gpt_tpu_torch.ops.cost2go import (INF, relax_fixpoint,  # noqa: E402
                                             relax_fixpoint_rows)
 from mapf_gpt_tpu_torch.ops.masking import MaskConfig  # noqa: E402
+from mapf_gpt_tpu_torch.ops.vocab import VOCAB_SIZE  # noqa: E402
 from mapf_gpt_tpu_torch.parallel.rollout import (_tokens_of,  # noqa: E402
                                                  batch_reset, make_batch_rollout,
                                                  make_recorded_rollout)
 from mapf_gpt_tpu_torch.train import loop as train_loop  # noqa: E402
-from mapf_gpt_tpu_torch.train.data import write_arrow_shard  # noqa: E402
+from mapf_gpt_tpu_torch.train.data import read_arrow_shard, write_arrow_shard  # noqa: E402
+from mapf_gpt_tpu_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
 from mapf_gpt_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from mapf_gpt_tpu_torch.utils import profiling  # noqa: E402
 
@@ -269,6 +312,19 @@ EVAL_STEPS, EVAL_BATCH = 64, 8
 EVAL_LIFELONG = ("warehouse", 64, 4)
 EVAL_K, EVAL_LIFELONG_STEPS = 16, 64
 SPLIT_STEPS = 8                  # steps of the bench shape's split (256 envs x 32 agents)
+# the expert-data phases: train and validation samples in the reference's training
+# distribution (the JAX GenConfig's comment), one anytime solve of 1 s an instance
+GEN_SAMPLES = (4096, 1024)
+GEN_CFG = dict(agent_counts=(16, 24, 32), map_sizes=(17, 19, 21), maze_fraction=0.9,
+               max_wait_frac=0.2, expert_time_limits=(1.0,))
+TRAIN_85M = (6, 512, 2)          # the 85M trainer's iterations, micro-batch, accumulation
+REF_ACCUM_85M = 16               # configs/config-85M.py's grad_accum, for the timed iteration
+LOSS_DROP_85M = 0.5
+# an estimate made before measuring: the saves, the backward workspace for a group of
+# 256 contexts (fused_train_workspace), and parameters, gradients and AdamW state of
+# about 1.4 GB
+MEM_85M_ESTIMATE = 24 * 512 * 256 * 768 * 2 + 3_051_094_016 + 1_400_000_000
+DIST_ITERS = 2                   # the 6M iterations of the world-size-1 --distributed check
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -730,14 +786,27 @@ def top_gradient(model, out: torch.Tensor, seed: int) -> torch.Tensor:
 GRAD_NAMES = ("dx", "dwqkv", "dwproj", "dwfc", "dwfc2", "dg1", "dg2")
 
 
-def compare_backward(label: str, xsave, dxin, stacks) -> tuple[float, torch.Tensor]:
-    """One backward chunk, kernel vs plain version, and the kernel twice:
-    the second launch must equal the first bit for bit.  Returns (max
-    |err|, the kernel's dx)."""
+def plain_backward_chunks(xsave, dxin, stacks, chunk: int):
+    """train_bwd_reference over `chunk` contexts a call: the contexts' dx
+    joined, the weight and gain gradients summed."""
+    dxs, grads = [], None
+    for c0 in range(0, dxin.shape[0], chunk):
+        dx, g = fgt.train_bwd_reference(xsave[:, c0:c0 + chunk], dxin[c0:c0 + chunk], stacks)
+        dxs.append(dx)
+        grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+    return torch.cat(dxs), tuple(grads)
+
+
+def compare_backward(label: str, xsave, dxin, stacks,
+                     chunk: int | None = None) -> tuple[float, torch.Tensor]:
+    """One backward chunk, kernel vs plain version (`chunk` contexts a
+    plain call, all when None), and the kernel twice: the second launch
+    must equal the first bit for bit.  Returns (max |err|, the kernel's
+    dx)."""
     got = fgt.train_backward(xsave, dxin, stacks)
     again = fgt.train_backward(xsave, dxin, stacks)
     torch.cuda.synchronize()
-    ref = fgt.train_bwd_reference(xsave, dxin, stacks)
+    ref = plain_backward_chunks(xsave, dxin, stacks, chunk or dxin.shape[0])
     err = max(check_close(f"{label} {name}", a, b, floor=1e-4, argmax=False, rel=0.08)
               for name, a, b in zip(GRAD_NAMES, (got[0], *got[1]), (ref[0], *ref[1])))
     if not all(torch.equal(a, b) for a, b in zip((got[0], *got[1]), (again[0], *again[1]))):
@@ -905,21 +974,37 @@ def train_ops(t: int, e: int, h: int, layers: int, last_only: bool, backward: bo
     return ops, layers * h * t * t
 
 
-def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
-                 trainer: dict) -> list[dict]:
-    """One forward + backward of the 6M at N_TRAIN_TIME contexts: the
-    kernels alone, the whole fused loss + backward, the plain versions."""
+def train_bounds(n: int, t: int, h: int, stacks: fgt.TrainStacks, chunks: int
+                 ) -> tuple[tuple[float, str], tuple[float, str]]:
+    """(forward, backward) bounds of the whole stack on n contexts, last
+    position out: x read, out and xsave written; xsave read once, the top
+    gradient and the chunks' dx in and out, weights, fp32 gradients."""
+    layers, e, _ = stacks.wqkv.shape
+    weights = nbytes(*stacks[:6])
+    stream = n * t * e * 2
+    ops, exps = train_ops(t, e, h, layers, True, False)
+    fwd = bound(n * ops, n * exps, stream + 2 * layers * stream + n * e * 2 + weights)
+    ops, exps = train_ops(t, e, h, layers, True, True)
+    grads = sum(4 * g.numel() for g in stacks[:6])
+    bwd = bound(n * ops, n * exps, 2 * layers * stream + 2 * chunks * stream + weights + grads)
+    return fwd, bwd
+
+
+def stack_runs(model, tokens: torch.Tensor, seed: int):
+    """The training stack alone on `tokens`: (stacks, backward chunks,
+    callables running the forward kernel, the backward chunks' kernels
+    and the plain versions of both, TRAIN_PLAIN_CHUNK contexts a call, and
+    the forward kernel's (x, out, xsave) with the top gradient dxin)."""
     cfg = model.cfg
     stacks = train_stacks(model)
-    layers, e, _ = stacks.wqkv.shape
-    t, h = cfg.block_size, cfg.n_head
-    blpc = fgt._bwd_layers_per_call(cfg)
-    _, _, real = reset_batch(seed, B, STEPS, dev)
-    tokens = real.repeat(N_TRAIN_TIME // real.shape[0], 1)
     x = embed(model, tokens)
     out, xsave = fgt.train_forward(x, stacks, last_only=True)
     dxin = top_gradient(model, out, seed)
-    chunks = [(lo, min(lo + blpc, layers)) for lo in reversed(range(0, layers, blpc))]
+    blpc = fgt._bwd_layers_per_call(cfg)
+    chunks = [(lo, min(lo + blpc, cfg.n_layer)) for lo in reversed(range(0, cfg.n_layer, blpc))]
+
+    def forward():
+        fgt.train_forward(x, stacks, last_only=True)
 
     def backward():
         dx = dxin
@@ -931,11 +1016,24 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
             fgt.train_fwd_reference(c, stacks, True)
 
     def plain_backward():
-        for c0 in range(0, x.shape[0], TRAIN_PLAIN_CHUNK):
-            dx = dxin[c0:c0 + TRAIN_PLAIN_CHUNK]
-            for lo, hi in chunks:
-                dx, _ = fgt.train_bwd_reference(
-                    xsave[2 * lo:2 * hi, c0:c0 + TRAIN_PLAIN_CHUNK], dx, stacks.chunk(lo, hi))
+        dx = dxin
+        for lo, hi in chunks:
+            dx, _ = plain_backward_chunks(xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi),
+                                          TRAIN_PLAIN_CHUNK)
+
+    return (stacks, chunks, forward, backward, plain_forward, plain_backward,
+            (x, out, xsave, dxin))
+
+
+def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
+                 trainer: dict) -> list[dict]:
+    """One forward + backward of the 6M at N_TRAIN_TIME contexts: the
+    kernels alone, the whole fused loss + backward, the plain versions."""
+    cfg = model.cfg
+    _, _, real = reset_batch(seed, B, STEPS, dev)
+    tokens = real.repeat(N_TRAIN_TIME // real.shape[0], 1)
+    stacks, chunks, forward, backward, plain_forward, plain_backward, _ = stack_runs(
+        model, tokens, seed)
 
     targets = torch.from_numpy(np.random.RandomState(seed).randint(0, 5, tokens.shape[0])).to(dev)
 
@@ -943,7 +1041,7 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
         model.zero_grad(set_to_none=True)
         fgt.fused_loss_fn(model, tokens, targets).backward()
 
-    fwd_ms = cuda_ms(lambda: fgt.train_forward(x, stacks, last_only=True), reps=3)
+    fwd_ms = cuda_ms(forward, reps=3)
     bwd_ms = cuda_ms(backward, reps=3)
     lib = fgt._library()
     log("[timing] backward workspace for groups of 256 contexts: " + ", ".join(
@@ -954,15 +1052,8 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
     plain_fwd_ms = cuda_ms(plain_forward, reps=1)
     plain_bwd_ms = cuda_ms(plain_backward, reps=1)
     n = N_TRAIN_TIME
-    weights = nbytes(*stacks[:6])
-    stream = n * t * e * 2
-    ops, exps = train_ops(t, e, h, layers, True, False)
-    fwd_bound, fwd_by = bound(n * ops, n * exps, stream + 2 * layers * stream + n * e * 2 + weights)
-    ops, exps = train_ops(t, e, h, layers, True, True)
-    grads = sum(4 * g.numel() for g in stacks[:6])
-    # xsave read once, the top gradient and the chunks' dx in and out, weights, fp32 grads
-    bwd_bytes = 2 * layers * stream + 2 * len(chunks) * stream + weights + grads
-    bwd_bound, bwd_by = bound(n * ops, n * exps, bwd_bytes)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = train_bounds(n, cfg.block_size, cfg.n_head,
+                                                            stacks, len(chunks))
     log(f"[timing] 6M train N={n}: forward kernel {fwd_ms:.3f} ms (plain {plain_fwd_ms:.3f} ms, "
         f"bound {fwd_bound:.3f} ms {fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); "
         f"backward kernels {bwd_ms:.3f} ms in {len(chunks)} calls (plain {plain_bwd_ms:.3f} ms, "
@@ -1295,6 +1386,310 @@ def evaluator_phase(model, seed: int, dev) -> dict:
     return out
 
 
+def check_paths(grid: np.ndarray, starts: np.ndarray, goals: np.ndarray,
+                paths: np.ndarray) -> None:
+    """A joint solution is feasible: it starts at the starts and ends at the
+    goals, every move is to a neighbour or a wait, on free cells, with no
+    two agents on one cell and no two swapping."""
+    if paths is None:
+        raise RuntimeError("solver: no solution")
+    if not (np.array_equal(paths[0], starts) and np.array_equal(paths[-1], goals)):
+        raise RuntimeError("solver: the paths do not run from the starts to the goals")
+    if (np.abs(np.diff(paths, axis=0)).sum(-1) > 1).any():
+        raise RuntimeError("solver: a move is not to a neighbouring cell")
+    if grid[paths[..., 0], paths[..., 1]].any():
+        raise RuntimeError("solver: an agent stands on an obstacle")
+    lin = paths[..., 0] * grid.shape[1] + paths[..., 1]   # [T+1, A]
+    if (np.diff(np.sort(lin, axis=1), axis=1) == 0).any():
+        raise RuntimeError("solver: two agents share a cell")
+    prev, cur = lin[:-1], lin[1:]
+    swap = (cur[:, :, None] == prev[:, None, :]) & (prev[:, :, None] == cur[:, None, :])
+    swap &= cur[:, :, None] != cur[:, None, :]
+    if swap.any():
+        raise RuntimeError("solver: two agents swap cells")
+
+
+def solver_phase(seed: int, build_s: float):
+    """17. One instance at the training distribution's largest shape solved
+    by the library built in phase 2 (first solution, anytime off) and its
+    paths checked.  Returns (instance, paths)."""
+    t0 = time.perf_counter()
+    inst = sample_instance(maze_grid(21, seed), 32, seed)
+    paths = expert.get_lib().solve(inst.grid, inst.starts, inst.goals, time_limit_s=10.0,
+                                   seed=seed, anytime=False)
+    check_paths(inst.grid, inst.starts, inst.goals, paths)
+    log(f"[solver] built with g++ in {build_s:.1f} s ({_lacam_build.library_path().name}); maze 21 "
+        f"x 32 agents: makespan {len(paths) - 1}, feasible, {time.perf_counter() - t0:.2f} s")
+    return inst, paths
+
+
+def read_shards(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Every shard under `path`: (tokens int8 [N, 256], targets int8 [N])."""
+    toks, gts = zip(*(read_arrow_shard(os.path.join(path, name))
+                      for name in sorted(os.listdir(path))))
+    return np.concatenate(toks), np.concatenate(gts)
+
+
+@contextlib.contextmanager
+def generation_tracing(spent: dict, episode_waits: list):
+    """The smoke's own tracing of generate_shards: while open, the solver's
+    and the replay's seconds add up in `spent`, and each episode's (waits,
+    samples) after balance_waits joins `episode_waits`.  The package's
+    functions are wrapped, not changed, and restored on exit."""
+    solve, samples, balance = (expert.solve_with_escalation, generate.episode_samples,
+                               generate.balance_waits)
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    def balanced(toks, gts, rng, frac):
+        toks, gts = balance(toks, gts, rng, frac)
+        episode_waits.append((int((gts == 0).sum()), len(gts)))
+        return toks, gts
+
+    expert.solve_with_escalation = timed("solve", solve)
+    generate.episode_samples = timed("replay", samples)
+    generate.balance_waits = balanced
+    try:
+        yield
+    finally:
+        expert.solve_with_escalation = solve
+        generate.episode_samples = samples
+        generate.balance_waits = balance
+
+
+def generation_phase(inst, paths, seed: int, dev, data_dir: str) -> dict:
+    """18. Expert shards in the reference's training distribution, the replay
+    on the card: GEN_SAMPLES train and validation samples, the solver's and
+    the replay's shares of the wall time; the shards' targets, tokens and
+    wait share checked; one episode's replay on the card equal to the CPU's."""
+    got = generate.episode_samples(inst, paths, dev)
+    want = generate.episode_samples(inst, paths, "cpu")
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("generation: the replay on the card differs from the CPU's")
+    log(f"[generation] one episode's replay, cuda against cpu: {len(got[0])} samples, tokens and "
+        f"targets equal")
+
+    spent = {"solve": 0.0, "replay": 0.0}
+    episode_waits = []   # (waits, samples) after balance_waits, per episode
+    out = {}
+    with generation_tracing(spent, episode_waits):
+        for split, total, offset in (("train", GEN_SAMPLES[0], 10), ("valid", GEN_SAMPLES[1], 20)):
+            cfg = generate.GenConfig(**GEN_CFG, seed=seed + offset, samples_per_shard=total,
+                                     device=str(dev))
+            spent.update(solve=0.0, replay=0.0)
+            t0 = time.perf_counter()
+            stats = generate.generate_shards(os.path.join(data_dir, split), total, cfg)
+            wall = time.perf_counter() - t0
+            out[split] = {**stats, "wall_s": wall, "samples_per_s": stats["samples"] / wall,
+                          "solve_share": spent["solve"] / wall,
+                          "replay_share": spent["replay"] / wall}
+            log(f"[generation] {split}: {json.dumps(out[split])}")
+
+    frac = GEN_CFG["max_wait_frac"]
+    worst = max(w / n for w, n in episode_waits if n)
+    if worst > frac:
+        raise RuntimeError(f"generation: an episode kept a wait share {worst} > {frac}")
+    for split in out:
+        toks, gts = read_shards(os.path.join(data_dir, split))
+        if len(gts) != out[split]["samples"] or toks.shape[1] != 256:
+            raise RuntimeError(f"generation: {split} shards hold {toks.shape}, expected "
+                               f"{out[split]['samples']} contexts")
+        if not ((gts >= 0) & (gts <= 4)).all():
+            raise RuntimeError(f"generation: {split} targets outside 0..4 (a wait marker left?)")
+        if not ((toks >= 0) & (toks < VOCAB_SIZE)).all():
+            raise RuntimeError(f"generation: {split} tokens outside the vocabulary")
+        # the shards are a random subset of the balanced episodes' samples, so
+        # their share may pass the episodes' cap by sampling noise: 3 sigma
+        share = float((gts == 0).mean())
+        limit = frac + 3 * math.sqrt(frac * (1 - frac) / len(gts))
+        out[split]["wait_share"] = share
+        log(f"[generation] {split}: {len(gts)} samples, targets in 0..4, tokens in the "
+            f"vocabulary, wait share {share:.4f} (limit {limit:.4f}; every episode's at most "
+            f"{frac}, the largest {worst:.4f})")
+        if share > limit:
+            raise RuntimeError(f"generation: {split} wait share {share} > {limit}")
+    return out
+
+
+def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
+    """19. The 85M trainer through train.loop.train on phase 18's shards,
+    the training kernels' counters set to 0 just before and read just
+    after, peak memory beside its estimate; its checkpoint drives one
+    rollout step through the layer-stack kernel; then iterations at the
+    reference shape (512 x 16), the first counted and the next two timed;
+    last the kernels alone at 512 contexts, checked against their plain
+    versions and timed."""
+    cfg = CONFIGS["85M"]
+    out_dir = os.path.join(data_dir, "out_85m")
+    iters, batch, accum = TRAIN_85M
+    args = train_loop.parse_args([
+        "--model", "85M", "--device", str(dev), "--train-data", os.path.join(data_dir, "train"),
+        "--valid-data", os.path.join(data_dir, "valid"), "--out-dir", out_dir,
+        "--batch-size", str(batch), "--grad-accum", str(accum), "--max-iters", str(iters),
+        "--eval-interval", "3", "--eval-iters", "2", "--log-interval", "1", "--seed", str(seed)])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fgt.fwd_launches = fgt.bwd_launches = 0
+    t0 = time.perf_counter()
+    result = train_loop.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = (fgt.fwd_launches, fgt.bwd_launches)
+    micro = iters * accum
+    bwd_per_micro = -(-cfg.n_layer // fgt._bwd_layers_per_call(cfg))
+    log(f"[trainer 85M] {iters} iterations x {accum} micro-batches of {batch}: {wall:.2f} s, "
+        f"launches forward {launches[0]} backward {launches[1]} ({bwd_per_micro} a micro-batch); "
+        f"peak memory {peak} bytes against the estimate {MEM_85M_ESTIMATE} bytes")
+    if launches != (micro, micro * bwd_per_micro):
+        raise RuntimeError(f"trainer 85M: training kernel launches {launches}, expected "
+                           f"{(micro, micro * bwd_per_micro)}")
+    losses = [h["loss"] for h in result["history"]]
+    evals = [(e["val_loss"], e["val_acc"]) for e in result["evals"]]
+    log(f"[trainer 85M] losses {losses}; evals (val_loss, val_acc) {evals}")
+    if not all(np.isfinite(v) for v in losses + [x for e in evals for x in e]):
+        raise RuntimeError("trainer 85M: a loss is not finite")
+    if not losses[-1] < losses[0] - LOSS_DROP_85M:
+        raise RuntimeError(f"trainer 85M: last loss {losses[-1]:.4f} is not {LOSS_DROP_85M} "
+                           f"below the first {losses[0]:.4f}")
+    step = ckpt.latest_step(out_dir)
+    ckpt_cfg, sd = load_reference_checkpoint(ckpt.checkpoint_path(out_dir, step))
+    spec, states, _ = reset_batch(seed, B_85M, 1, dev)
+    rollout(f"85M trained here (iter {step})", spec, load_model(ckpt_cfg, sd, device=dev), states,
+            B_85M, 1, e2e=0, blocks=1)
+    del result, sd
+    torch.cuda.empty_cache()
+
+    # one iteration at the reference shape, on the generated samples
+    toks, gts = read_shards(os.path.join(data_dir, "train"))
+    pick = np.random.RandomState(seed).randint(0, len(gts), size=REF_ACCUM_85M * batch)
+    x = torch.from_numpy(toks[pick].astype(np.int32)).to(dev).reshape(REF_ACCUM_85M, batch, -1)
+    y = torch.from_numpy(gts[pick].astype(np.int64)).to(dev).reshape(REF_ACCUM_85M, batch)
+    model = GPT(cfg)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(seed)))
+    model.to(dev).train()
+    step_fn = make_train_step(model, TrainConfig(grad_accum=REF_ACCUM_85M))
+    # a first iteration, untimed (it allocates the AdamW moments), with the
+    # training kernels' counters set to 0 just before and read just after
+    torch.cuda.synchronize()
+    fgt.fwd_launches = fgt.bwd_launches = 0
+    losses_ref = [step_fn(x, y).item()]
+    torch.cuda.synchronize()
+    ref_launches = (fgt.fwd_launches, fgt.bwd_launches)
+    if ref_launches != (REF_ACCUM_85M, REF_ACCUM_85M * bwd_per_micro):
+        raise RuntimeError(f"trainer 85M: {ref_launches} training kernel launches in an iteration "
+                           f"at {batch} x {REF_ACCUM_85M}, expected "
+                           f"{(REF_ACCUM_85M, REF_ACCUM_85M * bwd_per_micro)}")
+    iter_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses_ref.append(step_fn(x, y).item())
+        iter_times.append(time.perf_counter() - t0)
+    iter_s = statistics.median(iter_times)
+    flops = (profiling.transformer_flops_per_token(
+        model.num_params(), cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head, cfg.block_size)
+        * cfg.block_size * batch * REF_ACCUM_85M)
+    mfu = flops / iter_s / PEAK_BF16
+    log(f"[trainer 85M] iterations at the reference shape {batch} x {REF_ACCUM_85M}: launches "
+        f"forward {ref_launches[0]} backward {ref_launches[1]} in the first (untimed); then "
+        f"{iter_times[0]:.3f} and {iter_times[1]:.3f} s, median {iter_s:.3f} s ({1 / iter_s:.4f} "
+        f"it/s, {batch * REF_ACCUM_85M / iter_s:.1f} contexts/s), MFU {100 * mfu:.3f} % of "
+        f"{PEAK_BF16:.3g} FLOP/s; losses {losses_ref}")
+    if not all(math.isfinite(v) for v in losses_ref):
+        raise RuntimeError("trainer 85M: a reference-shape loss is not finite")
+
+    # the kernels alone at the micro-batch the trainer gives them (one
+    # forward, the 12 backward chunks), against their plain versions, then
+    # timed beside them
+    stacks, chunks, forward, backward, plain_forward, plain_backward, (xe, out, xsave, dxin) = \
+        stack_runs(model, x[0], seed)
+    torch.cuda.synchronize()
+    fwd_err = 0.0
+    for c0 in range(0, batch, TRAIN_PLAIN_CHUNK):
+        c1 = min(c0 + TRAIN_PLAIN_CHUNK, batch)
+        ref_out, ref_xsave = fgt.train_fwd_reference(xe[c0:c1], stacks, True)
+        fwd_err = max(fwd_err,
+                      check_close_channels(f"85M train forward N={batch}, contexts {c0}-{c1 - 1}, "
+                                           f"out", out[c0:c1], ref_out, 0),
+                      check_close_channels(f"85M train forward N={batch}, contexts {c0}-{c1 - 1}, "
+                                           f"xsave", xsave[:, c0:c1], ref_xsave, 1))
+        del ref_out, ref_xsave
+    bwd_err, dx = 0.0, dxin
+    for lo, hi in chunks:
+        err, dx = compare_backward(f"85M train backward N={batch} layer {lo}",
+                                   xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi),
+                                   chunk=TRAIN_PLAIN_CHUNK)
+        bwd_err = max(bwd_err, err)
+    del xe, out, dxin, dx
+    fwd_ms = cuda_ms(forward, reps=2)
+    bwd_ms = cuda_ms(backward, reps=2)
+    plain_fwd_ms = cuda_ms(plain_forward, reps=1)
+    plain_bwd_ms = cuda_ms(plain_backward, reps=1)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = train_bounds(batch, cfg.block_size, cfg.n_head,
+                                                            stacks, len(chunks))
+    log(f"[timing] 85M train N={batch}: forward kernel {fwd_ms:.3f} ms (plain {plain_fwd_ms:.3f} "
+        f"ms, bound {fwd_bound:.3f} ms {fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); "
+        f"backward kernels {bwd_ms:.3f} ms in {len(chunks)} calls (plain {plain_bwd_ms:.3f} ms, "
+        f"bound {bwd_bound:.3f} ms {bwd_by}, {100 * bwd_bound / bwd_ms:.2f} % of bound)")
+    return {"launches": launches, "losses": losses, "evals": evals, "wall_s": wall,
+            "peak_memory_bytes": peak, "memory_estimate_bytes": MEM_85M_ESTIMATE,
+            "ref_iteration_s": iter_times, "ref_it_per_s": 1 / iter_s, "ref_mfu": mfu,
+            "fwd": {"n_contexts": batch, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                    "bound_ms": fwd_bound, "bound_by": fwd_by, "max_abs_err": fwd_err,
+                    "launches_per_iteration": launches[0] // iters,
+                    "launches_per_reference_iteration": ref_launches[0]},
+            "bwd": {"n_contexts": batch, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                    "bound_ms": bwd_bound, "bound_by": bwd_by, "max_abs_err": bwd_err,
+                    "launches_per_iteration": launches[1] // iters,
+                    "launches_per_reference_iteration": ref_launches[1]}}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_phase(seed: int, dev, data_dir: str) -> dict:
+    """20. ``--distributed`` at world size 1 over NCCL: DIST_ITERS 6M
+    iterations on phase 18's shards, whose losses must equal a run without
+    it from the same seed; the training kernels' counters one forward a
+    micro-batch in each."""
+    runs = {}
+    for name in ("single", "distributed"):
+        argv = ["--model", "6M", "--device", dev.type, "--train-data",
+                os.path.join(data_dir, "train"), "--out-dir", os.path.join(data_dir, name),
+                "--batch-size", "256", "--grad-accum", "1", "--max-iters", str(DIST_ITERS),
+                "--eval-interval", "1000", "--log-interval", "1", "--seed", str(seed)]
+        coords = {}
+        if name == "distributed":
+            argv.append("--distributed")
+            coords = {"MAPF_GPT_TPU_COORDINATOR": f"localhost:{free_port()}",
+                      "MAPF_GPT_TPU_NUM_PROCESSES": "1", "MAPF_GPT_TPU_PROCESS_ID": "0"}
+        os.environ.update(coords)
+        fgt.fwd_launches = 0
+        try:
+            result = train_loop.train(train_loop.parse_args(argv))
+        finally:
+            for key in coords:
+                os.environ.pop(key)
+        runs[name] = ([h["loss"] for h in result["history"]], fgt.fwd_launches)
+    backend = "NCCL" if dev.type == "cuda" else "gloo"
+    log(f"[distributed] world size 1 over {backend}: losses {runs['distributed'][0]} against "
+        f"{runs['single'][0]} without --distributed; forward launches {runs['distributed'][1]}")
+    if runs["distributed"] != runs["single"] or runs["single"][1] != DIST_ITERS:
+        raise RuntimeError(f"distributed: {runs['distributed']} differs from {runs['single']}")
+    return {"losses": runs["distributed"][0], "equal": True}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1326,10 +1721,17 @@ def main() -> int:
     jobs += [("fused_blocks", fused_blocks.kernel_defines(e, h)) for e, h, *_ in BLOCK_SHAPES]
     jobs = list({_build.library_path(*job): job for job in jobs}.values())   # each library once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(jobs)) as pool:
+
+    def build_solver() -> float:
+        _lacam_build.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        solver_build = pool.submit(build_solver)   # g++, beside the nvcc jobs
         list(pool.map(lambda job: _build.build(*job), jobs))
+        solver_s = solver_build.result()
     log(f"[build] {sources} and {len(jobs) - len(sources)} widths in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; the LaCAM* solver (g++) in {solver_s:.1f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1370,8 +1772,35 @@ def main() -> int:
 
     # 16. the suite evaluator
     evaluator = evaluator_phase(model_2m, args.seed, dev)
+    log(f"[done] evaluator {time.perf_counter() - t_start:.1f} s")
+
+    # 17. the solver; 18. expert shards on the card; 19. the 85M trainer on them;
+    # 20. --distributed at world size 1
+    del model_2m, model_6m
+    torch.cuda.empty_cache()
+    slice_out = {"seconds": {}}
+
+    def timed_phase(name: str, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        slice_out["seconds"][name] = time.perf_counter() - t0
+        log(f"[done] {name} phase {slice_out['seconds'][name]:.1f} s")
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_expert_") as data_dir:
+        inst, paths = timed_phase("solver", lambda: solver_phase(args.seed, solver_s))
+        slice_out["generation"] = timed_phase(
+            "generation", lambda: generation_phase(inst, paths, args.seed, dev, data_dir))
+        slice_out["trainer_85m"] = timed_phase(
+            "trainer_85m", lambda: trainer_85m_phase(args.seed, dev, data_dir))
+        slice_out["distributed"] = timed_phase(
+            "distributed", lambda: distributed_phase(args.seed, dev, data_dir))
+    for entry in entries:
+        if entry["name"] in ("fused_train_fwd", "fused_train_bwd"):
+            entry["85M"] = slice_out["trainer_85m"][entry["name"][-3:]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    log(f"[expert data] {json.dumps(slice_out)}")
     log(f"[evaluator] {json.dumps(evaluator)}")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": entries}))

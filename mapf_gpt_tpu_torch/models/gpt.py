@@ -10,6 +10,12 @@ With ``bias=True`` the four Linears and the three LayerNorms carry biases
 ``cfg.dtype`` (bf16 by default) with fp32 LayerNorm, softmax and logits, as
 the flax module does.  Token ids are read as JAX indexing reads
 ``wte[idx]``: a negative id wraps once, then ids are clamped to the table.
+With ``dropout > 0`` and ``deterministic=False`` the forward drops where
+the flax module does: the embedding sum, the attention probabilities (on
+the plain attention only; the kernel runs undropped), the attention output
+and the MLP output, with masks drawn from an explicit ``torch.Generator``.
+The default is deterministic, as the flax module's, so inference and the
+training loss see no dropout.
 
 The state dict keys are the reference's (``transformer.wte.weight``,
 ``transformer.h.{i}.attn.c_attn.weight``, ``.bias`` with ``bias=True``,
@@ -21,14 +27,16 @@ Model family: 2M: 5L/5H/160d   6M: 8L/8H/256d   85M: 12L/12H/768d
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mapf_gpt_tpu_torch.ops.attention import attention
+from mapf_gpt_tpu_torch.ops.attention import attention, attention_einsum
 from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, jax_index, stack_weights
 from mapf_gpt_tpu_torch.ops.vocab import CONTEXT_SIZE, NUM_ACTIONS, VOCAB_SIZE
 
@@ -71,6 +79,17 @@ def _linear(x, layer: nn.Linear, dtype):
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+Dropout = Callable[[torch.Tensor], torch.Tensor]
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability 1 - p and
+    scaled by 1 / (1 - p) in x's dtype, the others zero; the mask drawn
+    from `generator` (on x's device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -78,15 +97,20 @@ class SelfAttention(nn.Module):
         self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, bias=cfg.bias)
         self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, bias=cfg.bias)
 
-    def forward(self, x):
+    def forward(self, x, drop: Dropout | None = None):
         cfg = self.cfg
         b, t, c = x.shape
         nh, hd = cfg.n_head, cfg.n_embd // cfg.n_head
         qkv = _linear(x, self.c_attn, cfg.dtype)
         q, k, v = (z.reshape(b, t, nh, hd).transpose(1, 2)
                    for z in qkv.split(cfg.n_embd, dim=-1))   # [B, H, T, D]
-        y = attention(q, k, v, 1.0 / math.sqrt(hd), cfg.attn_impl)
-        return _linear(y.transpose(1, 2).reshape(b, t, c), self.c_proj, cfg.dtype)
+        if drop is None:
+            y = attention(q, k, v, 1.0 / math.sqrt(hd), cfg.attn_impl)
+        else:
+            # the flax module drops the probabilities on its einsum path, whatever attn_impl
+            y = attention_einsum(q, k, v, 1.0 / math.sqrt(hd), drop)
+        y = _linear(y.transpose(1, 2).reshape(b, t, c), self.c_proj, cfg.dtype)
+        return y if drop is None else drop(y)
 
 
 class MLP(nn.Module):
@@ -96,9 +120,10 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, bias=cfg.bias)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, bias=cfg.bias)
 
-    def forward(self, x):
+    def forward(self, x, drop: Dropout | None = None):
         h = F.gelu(_linear(x, self.c_fc, self.cfg.dtype))   # erf form, as torch nn.GELU()
-        return _linear(h, self.c_proj, self.cfg.dtype)
+        y = _linear(h, self.c_proj, self.cfg.dtype)
+        return y if drop is None else drop(y)
 
 
 class Block(nn.Module):
@@ -109,16 +134,14 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.bias)
         self.mlp = MLP(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, drop: Dropout | None = None):
+        x = x + self.attn(self.ln_1(x), drop)
+        return x + self.mlp(self.ln_2(x), drop)
 
 
 class GPT(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.dropout > 0.0:
-            raise NotImplementedError("GPT: dropout > 0 is not ported yet")
         if cfg.attn_impl not in ("auto", "einsum", "pallas"):
             raise NotImplementedError(f"GPT: attn_impl={cfg.attn_impl!r} is not ported; "
                                       "'auto' and 'einsum' run the plain attention, "
@@ -133,16 +156,28 @@ class GPT(nn.Module):
         self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False)
         self.lm_head.weight = self.transformer.wte.weight   # weight tying
 
-    def forward(self, idx: torch.Tensor, last_only: bool = True) -> torch.Tensor:
+    def forward(self, idx: torch.Tensor, last_only: bool = True, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """idx: int [B, T] tokens -> fp32 logits [B, vocab] at the last
         position (inference and the training loss only read that one), or
-        [B, T, vocab] when not last_only."""
+        [B, T, vocab] when not last_only.  With deterministic=False and
+        cfg.dropout > 0, dropout masks come from `generator`, which must
+        then be given."""
+        cfg = self.cfg
+        drop = None
+        if cfg.dropout > 0.0 and not deterministic:
+            if generator is None:
+                raise ValueError("GPT: deterministic=False with dropout > 0 needs a "
+                                 "torch.Generator")
+            drop = functools.partial(dropout, p=cfg.dropout, generator=generator)
         tr = self.transformer
         t = idx.shape[1]
-        x = (F.embedding(jax_index(idx, self.cfg.vocab_size), tr.wte.weight)
-             + tr.wpe.weight[:t]).to(self.cfg.dtype)
+        x = (F.embedding(jax_index(idx, cfg.vocab_size), tr.wte.weight)
+             + tr.wpe.weight[:t]).to(cfg.dtype)
+        if drop is not None:
+            x = drop(x)
         for block in tr.h:
-            x = block(x)
+            x = block(x, drop)
         x = tr.ln_f(x[:, -1, :] if last_only else x)
         return x.float() @ tr.wte.weight.float().T
 

@@ -41,11 +41,15 @@ launches = 0   # kernel launches by attention_pallas; callers may reset it to 0
 
 
 def attention_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float) -> torch.Tensor:
-    """Plain version: q, k, v [B, H, T, D] -> [B, H, T, D] in q's dtype."""
+                     scale: float, drop=None) -> torch.Tensor:
+    """Plain version: q, k, v [B, H, T, D] -> [B, H, T, D] in q's dtype.
+    `drop`, when given, is applied to the fp32 probabilities (the module's
+    dropout)."""
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return (p.float() @ v.float()).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
+    if drop is not None:
+        p = drop(p)
+    return (p.to(q.dtype).float() @ v.float()).to(q.dtype)
 
 
 def check_shape(t: int, d: int, dtype: torch.dtype) -> None:

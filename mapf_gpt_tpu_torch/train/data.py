@@ -78,15 +78,7 @@ class ArrowShardStream:
         return mine
 
     def _load_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:
-        pa = _pyarrow()
-
-        with pa.memory_map(path) as source:
-            table = pa.ipc.open_file(source).read_all()
-        tokens = np.asarray(table["input_tensors"].combine_chunks()
-                            .flatten(), dtype=np.int8)
-        tokens = tokens.reshape(-1, self.context)
-        actions = np.asarray(table["gt_actions"].combine_chunks(),
-                             dtype=np.int8)
+        tokens, actions = read_arrow_shard(path, self.context)
         perm = self.rng.permutation(len(tokens))
         return tokens[perm], actions[perm]
 
@@ -105,6 +97,22 @@ class ArrowShardStream:
                     y = actions[i:i + need].astype(np.int32).reshape(
                         self.grad_accum, self.batch_size)
                     yield x, y
+
+
+def read_arrow_shard(path: str, context: int = 256
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """One shard in file order: (tokens int8 [N, context], actions int8
+    [N])."""
+    pa = _pyarrow()
+
+    with pa.memory_map(path) as source:
+        table = pa.ipc.open_file(source).read_all()
+    tokens = np.asarray(table["input_tensors"].combine_chunks()
+                        .flatten(), dtype=np.int8)
+    tokens = tokens.reshape(-1, context)
+    actions = np.asarray(table["gt_actions"].combine_chunks(),
+                         dtype=np.int8)
+    return tokens, actions
 
 
 def write_arrow_shard(path: str, tokens: np.ndarray,

@@ -1,5 +1,4 @@
-"""Imitation-training loop and CLI, single device: the port of
-``mapf_gpt_tpu/train/loop.py``.
+"""Imitation-training loop and CLI: the port of ``mapf_gpt_tpu/train/loop.py``.
 
 Usage:
 
@@ -16,9 +15,18 @@ logging, a ``--config`` file and ``--key=value`` overrides.  Parameters
 start from ``models.gpt.init_params`` under ``--seed``.  On CUDA the loss
 and its gradients run through the fused training kernels
 (``train/train_step.select_loss_fn``); on the CPU through the module.
-``--distributed`` raises ``NotImplementedError`` (not ported yet);
 ``--wandb-project`` logs to wandb where it is installed and is ignored
 otherwise.
+
+``--distributed`` runs one process per device on ``torch.distributed``
+(``parallel/mesh.py``: NCCL on CUDA, gloo on the CPU), with the coordinates
+the JAX loop reads (``MAPF_GPT_TPU_COORDINATOR``,
+``MAPF_GPT_TPU_NUM_PROCESSES``, ``MAPF_GPT_TPU_PROCESS_ID``) or torchrun's.
+Parameters start from rank 0's; each process reads its own shard files and
+micro-batches of ``--batch-size``; the gradients and the loss are averaged
+once a step, after the accumulation; the eval means are averaged across
+processes; rank 0 saves the checkpoints and logs, the others wait at a
+barrier.
 """
 
 from __future__ import annotations
@@ -29,8 +37,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mapf_gpt_tpu_torch.models.gpt import CONFIGS, GPT, init_params
+from mapf_gpt_tpu_torch.parallel import mesh
 from mapf_gpt_tpu_torch.train.data import ArrowShardStream
 from mapf_gpt_tpu_torch.train.train_step import (TrainConfig, make_eval_step, make_optimizer,
                                                  make_train_step)
@@ -63,7 +73,7 @@ def parse_args(argv=None):
     p.add_argument("--wandb-project", default=None,
                    help="optional wandb logging; ignored if wandb is not installed")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet: raises)")
+                   help="one process per device on torch.distributed")
     p.add_argument("--config", default=None,
                    help="python config file exec'd over the parsed args "
                         "(the reference configurator semantics)")
@@ -77,9 +87,19 @@ def parse_args(argv=None):
 
 
 def train(args) -> dict:
-    if args.distributed:
-        raise NotImplementedError("--distributed: multi-process training is not ported yet")
-    device = torch.device(args.device)
+    """Run the loop; with --distributed inside a process group that it
+    joins here and leaves at the end."""
+    if not args.distributed:
+        return _train(args, 0, 1, torch.device(args.device))
+    rank, world, device = mesh.init_process_group(args.device)
+    try:
+        return _train(args, rank, world, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, rank: int, world: int, device: torch.device) -> dict:
+    is_main = rank == 0
     cfg = CONFIGS[args.model]
     d = DEFAULTS[args.model]
     batch_size = args.batch_size or d["batch_size"]
@@ -98,13 +118,20 @@ def train(args) -> dict:
         model.load_state_dict(saved["model"], strict=True)
         optimizer.load_state_dict(saved["optimizer"])
         start_iter = int(saved["iter_num"])
-        print(f"resumed from {args.out_dir} at iter {start_iter}")
+        if is_main:
+            print(f"resumed from {args.out_dir} at iter {start_iter}")
+    sync = None
+    if args.distributed:
+        mesh.broadcast_parameters(optimizer.params)
+        sync = mesh.all_reduce_mean
 
-    step_fn = make_train_step(model, tc, optimizer)
+    step_fn = make_train_step(model, tc, optimizer, sync=sync)
     eval_fn = make_eval_step(model)
     train_stream = iter(ArrowShardStream(args.train_data, batch_size, args.grad_accum,
+                                         process_index=rank, process_count=world,
                                          seed=args.seed))
-    valid_stream = (iter(ArrowShardStream(args.valid_data, batch_size, 1, seed=args.seed + 1))
+    valid_stream = (iter(ArrowShardStream(args.valid_data, batch_size, 1, process_index=rank,
+                                          process_count=world, seed=args.seed + 1))
                     if args.valid_data else None)
 
     # 6N + 12LHQT is already the fwd+bwd per-token estimate (PaLM appendix B)
@@ -115,7 +142,7 @@ def train(args) -> dict:
     history, evals = [], []
 
     wandb = None
-    if getattr(args, "wandb_project", None):
+    if getattr(args, "wandb_project", None) and is_main:
         try:
             import wandb as _wandb
 
@@ -138,21 +165,30 @@ def train(args) -> dict:
             loss, acc = eval_fn(on_device(x[0]), on_device(y[0]))
             losses.append(loss.item())
             accs.append(acc.item())
-        return float(np.mean(losses)), float(np.mean(accs))
+        means = [float(np.mean(losses)), float(np.mean(accs))]
+        if args.distributed:
+            means = torch.tensor(means, dtype=torch.float64, device=device)
+            mesh.all_reduce_mean([means])
+            means = means.tolist()
+        return means[0], means[1]
 
     t_start = time.time()
     for it in range(start_iter, max_iters + 1):
         if it % args.eval_interval == 0:
             ev = run_eval()
             if ev:
-                print(f"iter {it}: val_loss {ev[0]:.4f} val_acc {ev[1]:.4f}")
                 evals.append({"iter": it, "val_loss": ev[0], "val_acc": ev[1]})
+                if is_main:
+                    print(f"iter {it}: val_loss {ev[0]:.4f} val_acc {ev[1]:.4f}")
                 if wandb:
                     wandb.log({"val/loss": ev[0], "val/acc": ev[1]}, step=it)
             if it > start_iter:
-                ckpt.save_checkpoint(args.out_dir, it, model, optimizer.state_dict(),
-                                     metadata={"model": args.model,
-                                               "val_loss": ev[0] if ev else None})
+                if is_main:
+                    ckpt.save_checkpoint(args.out_dir, it, model, optimizer.state_dict(),
+                                         metadata={"model": args.model,
+                                                   "val_loss": ev[0] if ev else None})
+                if args.distributed:
+                    dist.barrier()   # no process reads on before rank 0's file is written
         if it == max_iters:
             break
         x, y = next(train_stream)
@@ -162,7 +198,8 @@ def train(args) -> dict:
             sps, mfu = meter.tick(steps=args.log_interval)
             history.append({"iter": it, "loss": loss})
             mfu_text = "n/a" if mfu is None else f"{mfu * 100:.1f}%"
-            print(f"iter {it}: loss {loss:.4f} | {sps:.2f} it/s | mfu {mfu_text}")
+            if is_main:
+                print(f"iter {it}: loss {loss:.4f} | {sps:.2f} it/s | mfu {mfu_text}")
             if wandb:
                 wandb.log({"train/loss": loss, "perf/steps_per_s": sps,
                            **({"perf/mfu": mfu} if mfu is not None else {})}, step=it)

@@ -117,7 +117,9 @@ def make_optimizer(model: GPT, tc: TrainConfig) -> AdamW:
 
 
 def loss_fn(model: GPT, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """tokens int [B, T]; targets int [B] (the expert's action id)."""
+    """tokens int [B, T]; targets int [B] (the expert's action id).  The
+    module runs deterministic, as the JAX ``loss_fn`` applies it: a dropout
+    config drops nothing here."""
     return F.cross_entropy(model(tokens), targets.long())
 
 
@@ -138,11 +140,14 @@ def select_loss_fn(model: GPT, use_fused: bool | None = None) -> Callable:
 
 
 def make_train_step(model: GPT, tc: TrainConfig, optimizer: AdamW | None = None,
-                    use_fused: bool | None = None) -> Callable:
+                    use_fused: bool | None = None,
+                    sync: Callable[[list[torch.Tensor]], None] | None = None) -> Callable:
     """Returns train_step(tokens int [accum, B, T], targets int [accum, B])
     -> the mean loss (a 0-d tensor; reading it waits for the device).  It
     updates the model's parameters in place through `optimizer` (a new
-    :func:`make_optimizer` if None)."""
+    :func:`make_optimizer` if None).  `sync`, when given, is called once a
+    step, after the accumulation, on the mean loss and the gradients, and
+    reduces them in place across processes (``parallel/mesh.all_reduce_mean``)."""
     opt = optimizer or make_optimizer(model, tc)
     grad_loss = select_loss_fn(model, use_fused)
     scale = 1.0 / tc.grad_accum
@@ -155,8 +160,11 @@ def make_train_step(model: GPT, tc: TrainConfig, optimizer: AdamW | None = None,
             loss = grad_loss(x, y)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
-        opt.update([p.grad * scale for p in opt.params])
-        return loss_sum * scale
+        loss, grads = loss_sum * scale, [p.grad * scale for p in opt.params]
+        if sync is not None:
+            sync([loss, *grads])
+        opt.update(grads)
+        return loss
 
     train_step.optimizer = opt
     return train_step

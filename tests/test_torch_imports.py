@@ -1,8 +1,8 @@
 """The port runs where JAX is absent: ``mapf_gpt_tpu_torch`` and
 ``chip_smoke.py`` import neither JAX, flax nor anything of ``mapf_gpt_tpu``,
-and, since the GPU machine has neither, they import without PyYAML and
-matplotlib (which only the functions that read suite files and draw plots
-import).
+and, since the GPU machine has neither, they import without PyYAML,
+matplotlib and huggingface_hub (which only the functions that read suite
+files, draw plots and download import).
 
 The import check runs in a subprocess with those modules blocked (a
 ``None`` entry in ``sys.modules`` makes their import fail), which is the
@@ -19,7 +19,8 @@ PORT = os.path.join(ROOT, "mapf_gpt_tpu_torch")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mapf_gpt_tpu", "yaml", "matplotlib"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mapf_gpt_tpu", "yaml", "matplotlib",
+             "huggingface_hub"):
     sys.modules[name] = None
 sys.path.insert(0, {ROOT!r})
 import mapf_gpt_tpu_torch
@@ -34,10 +35,15 @@ assert {{"mapf_gpt_tpu_torch.ops.attention", "mapf_gpt_tpu_torch.ops.fused_gpt",
          "mapf_gpt_tpu_torch.bench", "mapf_gpt_tpu_torch.eval.harness",
          "mapf_gpt_tpu_torch.eval.run", "mapf_gpt_tpu_torch.eval.benchmark",
          "mapf_gpt_tpu_torch.eval.example", "mapf_gpt_tpu_torch.eval.report",
-         "mapf_gpt_tpu_torch.eval.animation", "mapf_gpt_tpu_torch.eval.bigmap"}} <= set(names), names
+         "mapf_gpt_tpu_torch.eval.animation", "mapf_gpt_tpu_torch.eval.bigmap",
+         "mapf_gpt_tpu_torch.dataset.expert", "mapf_gpt_tpu_torch.dataset.generate",
+         "mapf_gpt_tpu_torch.dataset.solve", "mapf_gpt_tpu_torch.dataset.download",
+         "mapf_gpt_tpu_torch.dataset._lacam_build", "mapf_gpt_tpu_torch.parallel.mesh",
+         "mapf_gpt_tpu_torch.tools.mp_worker"}} <= set(names), names
 import chip_smoke
 leaked = sorted(n for n in sys.modules
-                if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu", "yaml", "matplotlib")
+                if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu", "yaml", "matplotlib",
+                                       "huggingface_hub")
                 and sys.modules[n] is not None)
 assert not leaked, leaked
 print(len(names))

@@ -15,7 +15,7 @@
 - checkpoints: save, restore and resume round trip; a saved file loads with
   ``convert.load_reference_checkpoint``; only the newest 3 are kept;
 - the CLI on ``--device cpu`` resumes as ``test_trainer_cli_resume`` does
-  for the JAX trainer, and ``--distributed`` raises;
+  for the JAX trainer, and ``--distributed`` without coordinates raises;
 - the copied configurator and curve modules, and the meter (no MFU on the
   CPU).
 """
@@ -132,6 +132,19 @@ def test_arrow_shards_cross_read(tmp_path, writer, reader):
         np.testing.assert_array_equal(gy, wy)
 
 
+@pytest.mark.parametrize("writer", [data, jdata])
+def test_read_arrow_shard_gives_the_rows_in_file_order(tmp_path, writer):
+    """`read_arrow_shard` reads a shard of either package back exactly,
+    unshuffled."""
+    tokens, actions = _tokens(np.random.RandomState(1), 48)
+    path = str(tmp_path / "chunk_0_part_0.arrow")
+    writer.write_arrow_shard(path, tokens, actions)
+    got_tokens, got_actions = data.read_arrow_shard(path)
+    assert got_tokens.dtype == np.int8 and got_actions.dtype == np.int8
+    np.testing.assert_array_equal(got_tokens, tokens)
+    np.testing.assert_array_equal(got_actions, actions)
+
+
 def test_process_sharding_and_rescan_match_jax(tmp_path):
     def shard(i):
         return str(tmp_path / f"chunk_600_part_{i}.arrow")
@@ -235,9 +248,14 @@ def test_trainer_cli_resume(tmp_path, capsys):
     assert [p[0] for p in parsed["val"]] == [0, 2, 4]
 
 
-def test_distributed_flag_raises(tmp_path):
+def test_distributed_flag_raises(tmp_path, monkeypatch):
+    """--distributed with no coordinates in the environment raises, naming
+    what it needs (the multi-process runs are tests/test_torch_distributed.py)."""
+    for name in ("MAPF_GPT_TPU_COORDINATOR", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                 "RANK"):
+        monkeypatch.delenv(name, raising=False)
     args = loop.parse_args(["--train-data", str(tmp_path), "--distributed", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="--distributed needs the process group's coordinates"):
         loop.train(args)
 
 
@@ -266,12 +284,13 @@ def test_configurator_and_meter(tmp_path):
     ("bias", True), ("dropout", 0.1), ("attn_impl", "pallas"), ("attn_impl", "flash"),
 ])
 def test_unported_config_options_raise(field, value):
-    """Options the module does not run (dropout > 0, an attn_impl other than
-    "auto", "einsum" and "pallas") raise, rather than run another
-    implementation than the one asked for; bias=True and "pallas", ported
-    since, build and run a forward."""
+    """Options the module does not run (an attn_impl other than "auto",
+    "einsum" and "pallas") raise, rather than run another implementation
+    than the one asked for; bias=True, "pallas" and dropout > 0, ported
+    since, build and run a forward (tests/test_torch_dropout.py holds
+    dropout against the JAX module)."""
     cfg = GPTConfig(n_layer=1, n_head=1, n_embd=32, **{field: value})
-    if (field, value) in (("bias", True), ("attn_impl", "pallas")):
+    if (field, value) in (("bias", True), ("attn_impl", "pallas"), ("dropout", 0.1)):
         with torch.no_grad():
             assert GPT(cfg)(torch.zeros((2, 256), dtype=torch.long)).shape == (2, 67)
         return
