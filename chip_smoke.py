@@ -60,9 +60,10 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    ``blocks_reference`` (stream within atol 0.02 * max|ref|); the
    chunked route at T = 200, and the layer-stack kernel alone at the
    shapes its lifted limits admit (``BLOCK_SHAPES``: the 85M's width at T
-   = 200, head dims 8 and 24, n_embd 336 with 21 heads, and 256 heads of
+   = 200, head dims 8 and 24, n_embd 336 with 21 heads, 256 heads of
    head dim 8 at n_embd 2048, whose thin attention was past the shared
-   memory before), and the widths the padded layouts admit (n_embd 250 with 5
+   memory before, and head dim 48 at T = 130, whose wgmma attention reads
+   a 64-wide box), and the widths the padded layouts admit (n_embd 250 with 5
    heads, stored padded to 256 with LayerNorm over 250; n_embd 1032 with
    4 heads of 258 columns, run in three slabs of 96), both ways of
    ``last_only``, the repaired widths' stacks timed at 256 contexts; a 4 x 32 x 32
@@ -119,10 +120,19 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    16] (D=16), [4, 4, 256, 128] (D=128), [4, 5, 200, 32] (a masked T),
    [4, 5, 300, 32] and [2, 4, 1024, 32] (T past 256; K and V in two
    windows at 1024), [1, 4, 1024, 128] (four windows), head dims 8, 24 and
-   72 (zero columns in bf16), and the 6M-like shape and a D=24 shape as the
-   module's strided views of a q|k|v product:
-   fp32 within rtol = atol = 1e-4 (``tests/test_attention.py``), bf16
-   and fp16 within 0.01 * max|ref| + 1e-3.
+   72 (zero columns in bf16), PR 13's [4, 6, 256, 48], [6, 5, 130, 16]
+   (three query tiles), [16, 4, 64, 64] and [32, 3, 1, 32], head dims 144
+   and 256 (bf16 slabs, fp16 and fp32 on FMA), and, so that the wgmma
+   kernel's ring of stages wraps (more pairs than 132 CTAs x its stages)
+   at every head width it takes, [512, 8, 256, 32] (the bias=True 6M
+   rollout's shape), [48, 12, 256, 64], [64, 6, 130, 48] and [128, 8, 130,
+   16]; the 6M-like, 85M-like, a D=24, a D=48 and the [512, 8, 256, 32]
+   shape also as the module's strided views of a q|k|v product: fp32
+   within rtol = atol = 1e-4 (``tests/test_attention.py``), bf16 and fp16
+   within 0.01 * max|ref| + 1e-3.  Each compare names its route (the C
+   launcher's ``attention_route``: the wgmma kernel of
+   ``csrc/attn_wgmma.cuh``, the mma.sync tiles, the bf16 slabs or FMA),
+   and all four must occur.
 13. The module route at full width: the trained 6M with
    ``attn_impl="pallas"`` through ``make_forward(model, use_fused=False)``
    on phase 6's 512 contexts against the same model with "einsum", phase
@@ -137,9 +147,16 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    on the rollout's 512 contexts timed beside a rollout step.
 15. Attention timing by CUDA events at [8192, 5, 256, 32] (the 2M rollout
    at 256 envs x 32 agents) and [2048, 12, 256, 64] (the 85M at the
-   harness cap), bf16: the kernel, its plain version (in chunks), one
-   ``scaled_dot_product_attention`` call (a yardstick, never on the port's
-   path) and the bound; the kernel and the library call again in fp16.
+   harness cap), bf16: the kernel, its plain version (in chunks, each
+   chunk held against the kernel's output there, phase 12's tolerance),
+   one ``scaled_dot_product_attention`` call (a yardstick, never on the
+   port's path), the bound and, in the log, the exp2s' floor (16 a clock
+   an SM at the card's highest clock); the kernel, held against the plain
+   version the same way, and the library call again in fp16.  Then the layer stack's attention alone
+   (``fused_blocks.blocks_attention``) at [2048, 12, 256, 64], held against
+   its plain version and timed beside the same bound, floor and SDPA; and
+   the host time of one call of the wrapper at [1, 1, 64, 32] (bf16 encodes
+   three tensor maps, fp32 none).
 16. The suite evaluator (``eval/harness.Evaluator``) with the trained 2M,
    argmax, on maps registered from ``random_grid``, ``maze_grid`` and
    ``warehouse_grid``: 16 one-shot specs of 64 steps (CSR, ISR, SoC,
@@ -282,6 +299,9 @@ TRAIN_WIDTHS = {"85M width": (768, 12, 256), "head dim 16": (256, 16, 256),   # 
 # past a block's shared memory
 BLOCK_SHAPES = ((768, 12, 2, 200), (96, 12, 2, 200), (96, 4, 2, 200), (336, 21, 2, 200),
                 (2048, 256, 1, 256),
+                # PR 13: head dim 48 on the wgmma attention (a 64-wide box over the
+                # next head's columns, 48 of them used) at T = 130 (three query tiles)
+                (288, 6, 2, 130),
                 # repaired: n_embd 250 (stored padded to 256, LayerNorm over 250) and head
                 # dim 258 (three slabs of 96 columns)
                 (250, 5, 2, 256), (1032, 4, 2, 256), (1032, 4, 1, 200))
@@ -300,8 +320,17 @@ LOSS_DROP = 0.5                  # the trainer's last logged loss must be this f
 ATT_SHAPES = ((64, 5, 256, 32), (32, 8, 256, 32), (16, 12, 256, 64), (1, 3, 256, 32),
               (4, 10, 256, 16), (4, 4, 256, 128), (4, 5, 200, 32),   # [B, H, T, D] compared
               (4, 5, 300, 32), (2, 4, 1024, 32), (1, 4, 1024, 128), (8, 5, 256, 8),
-              (8, 5, 256, 24), (4, 4, 256, 72))
-ATT_STRIDED = ((32, 8, 256, 32), (8, 5, 256, 24))   # also as views of a q|k|v product
+              (8, 5, 256, 24), (4, 4, 256, 72),
+              # PR 13: the wgmma route's D = 48 (a 64-wide box), T = 130 (three query
+              # tiles: the two warpgroups' turns alternate across pairs), 64 and 1; the
+              # heads past 128 (bf16 slabs of 80 and 128 columns, fp16 and fp32 FMA)
+              (4, 6, 256, 48), (6, 5, 130, 16), (16, 4, 64, 64), (32, 3, 1, 32),
+              (2, 3, 256, 144), (1, 2, 200, 256),
+              # more pairs than 132 CTAs x the ring's stages (4 at D <= 32, 2 above),
+              # so that each stage is refilled under a direct compare
+              (512, 8, 256, 32), (48, 12, 256, 64), (64, 6, 130, 48), (128, 8, 130, 16))
+ATT_STRIDED = ((32, 8, 256, 32), (8, 5, 256, 24),   # also as views of a q|k|v product
+               (16, 12, 256, 64), (8, 6, 200, 48), (512, 8, 256, 32))
 ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}   # [B, H, T, D] timed
 ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
 # the evaluator phase: one-shot specs (map, agents, seeds) of EVAL_STEPS steps, and
@@ -327,6 +356,7 @@ MEM_85M_ESTIMATE = 24 * 512 * 256 * 768 * 2 + 3_051_094_016 + 1_400_000_000
 DIST_ITERS = 2                   # the 6M iterations of the world-size-1 --distributed check
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
+MUFU_PER_CLOCK = 16              # exp2s an SM's special-function units issue a clock (sm_90)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -370,6 +400,19 @@ def bound(bf16_ops: float, fp32_ops: float, nbytes: float) -> tuple[float, str]:
     t_ops = bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mufu_floor_ms(exps: float) -> float:
+    """Least time (ms) of `exps` exp2s on the special-function units: 16 a
+    clock an SM at the card's highest SM clock (nvidia-smi).  bound() counts
+    them at the fp32 rate, 16x too cheaply for the attention's; it stays as
+    it is, so that earlier rows stay comparable, and this floor sits beside
+    it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * exps / (sms * MUFU_PER_CLOCK * mhz * 1e6)
 
 
 def nbytes(*tensors) -> int:
@@ -715,14 +758,16 @@ def blocks_model(seed: int, dev) -> dict:
     log(f"[timing] 85M N={N_TIME_85M}: kernel {ms:.3f} ms (whole forward {fwd_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
         f"{100 * bound_ms / ms:.2f} % of bound")
-    log_split(f"85M N={N_TIME_85M} layer stack",
-              lambda: fused_blocks.fused_blocks(x, stacks, last_only=True))
+    split = log_split(f"85M N={N_TIME_85M} layer stack",
+                      lambda: fused_blocks.fused_blocks(x, stacks, last_only=True))
     return {"name": "fused_blocks", "model": "85M", "route": "cuda",
             "source": "mapf_gpt_tpu_torch/csrc/fused_blocks.cu",
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:167",
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "n_contexts": N_TIME_85M, "at_t_200_and_block_shapes": True}
+            "n_contexts": N_TIME_85M, "at_t_200_and_block_shapes": True,
+            "attention_kernels_ms": {profiling.kernel_key(name): ms_k
+                                     for ms_k, _, name in split if "attn" in name}}
 
 
 def widths_phase(seed: int, dev) -> None:
@@ -1095,21 +1140,37 @@ def check_attention(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return diff.max().item()
 
 
+ATT_ROUTES = ("wgmma", "tile", "wide", "fma")   # csrc/attention.cu's attention_route codes
+
+
+def attention_route(t: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel the C launcher (attention_route) takes for this shape."""
+    code = tatt._library().attention_route(tatt._DTYPES[dtype], t, tatt.kernel_width(d, dtype))
+    if code not in range(len(ATT_ROUTES)):
+        raise RuntimeError(f"attention T={t} D={d} {dtype}: no route ({code})")
+    return ATT_ROUTES[code]
+
+
 def attention_phase(seed: int, dev) -> float:
-    """The attention kernel against its plain version at ATT_SHAPES, fp32
-    and bf16, and at the 6M-like shape as the module's strided views.
-    Returns the largest max |err|."""
+    """The attention kernel against its plain version at ATT_SHAPES, fp32,
+    bf16 and fp16, and at ATT_STRIDED as the module's strided views, on
+    every route.  Returns the largest max |err|."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     err = 0.0
+    routes = set()
     for shape in ATT_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
         scale = 1.0 / math.sqrt(shape[-1])
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = [t.to(dtype) for t in (q, k, v)]
+            route = attention_route(shape[2], shape[3], dtype)
+            routes.add(route)
             got = tatt.attention_pallas(*x, scale)
             torch.cuda.synchronize()
-            err = max(err, check_attention(f"attention {list(shape)} {dtype}", got,
+            err = max(err, check_attention(f"attention {list(shape)} {dtype} ({route})", got,
                                            tatt.attention_einsum(*x, scale)))
+    if routes != set(ATT_ROUTES):
+        raise RuntimeError(f"attention: routes {sorted(routes)} compared, not all four")
     for b, h, t, d in ATT_STRIDED:
         qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1117,7 +1178,8 @@ def attention_phase(seed: int, dev) -> float:
             got = tatt.attention_pallas(*x, 1.0 / math.sqrt(d))
             torch.cuda.synchronize()
             err = max(err, check_attention(
-                f"attention {[b, h, t, d]} {dtype}, strided views of q|k|v", got,
+                f"attention {[b, h, t, d]} {dtype} ({attention_route(t, d, dtype)}), "
+                "strided views of q|k|v", got,
                 tatt.attention_einsum(*x, 1.0 / math.sqrt(d))))
     return err
 
@@ -1168,9 +1230,67 @@ def bias_rollout_phase(seed: int, dev) -> tuple[int, float]:
     return launches, dt
 
 
-def attention_timing(seed: int, dev, launches: int, max_err: float) -> dict:
-    """The attention kernel at ATT_TIME in bf16, beside its plain version,
-    one scaled_dot_product_attention call and the bound."""
+def host_us_per_call(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of fn() takes to enqueue, at a shape whose
+    device work is far shorter (the wrapper's checks, tensor maps, launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def blocks_attention_timing(seed: int, dev, b: int, h: int, t: int, d: int) -> dict:
+    """The layer stack's attention alone (fused_blocks.blocks_attention, the
+    85M's width) on a random q|k|v workspace [b, t, 3 h d], W_q's scale and
+    log2(e) folded into q as the stack folds them: held against its plain
+    version (ATT_PLAIN_PAIRS // h contexts a call), then timed beside the
+    bound and the exp2s' floor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev)
+    qkv[..., :h * d] *= math.log2(math.e) / math.sqrt(d)
+    qkv = qkv.to(torch.bfloat16)
+    chunk = max(1, ATT_PLAIN_PAIRS // h)
+    got = fused_blocks.blocks_attention(qkv, h)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i in range(0, b, chunk):
+        err = max(err, check_attention(
+            f"blocks attention [{b}, {h}, {t}, {d}] contexts {i}..{min(b, i + chunk) - 1}",
+            got[i:i + chunk], fused_blocks.attention_reference(qkv[i:i + chunk], h)))
+    ms = cuda_ms(lambda: fused_blocks.blocks_attention(qkv, h), reps=5)
+    plain_ms = cuda_ms(lambda: [fused_blocks.attention_reference(qkv[i:i + chunk], h)
+                                for i in range(0, b, chunk)], reps=1)
+    n = b * h
+    bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
+    floor_ms = mufu_floor_ms(n * t * t)
+    log(f"[timing] blocks attention (the 85M stack's) [{b}, {h}, {t}, {d}]: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), exp2 floor "
+        f"{floor_ms:.3f} ms, {100 * bound_ms / ms:.2f} % of bound")
+    return {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def check_attention_chunks(name: str, got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, scale: float, chunk: int) -> float:
+    """got, the kernel's output on q, k, v, held against attention_einsum
+    `chunk` batch entries at a time; returns max |got - ref|."""
+    return max(check_attention(f"{name} batch {i}..{min(got.shape[0], i + chunk) - 1}",
+                               got[i:i + chunk], tatt.attention_einsum(
+                                   q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], scale))
+               for i in range(0, got.shape[0], chunk))
+
+
+def attention_timing(seed: int, dev, launches: int, max_err: float) -> tuple[dict, dict]:
+    """The attention kernel at ATT_TIME in bf16 and fp16, its outputs there
+    held against its plain version chunk by chunk, timed beside the plain
+    version, one scaled_dot_product_attention call, the bound and the
+    exp2s' floor; the layer stack's attention alone at the 85M's shape; the
+    host time of a call.  Returns the attention's entry and the stack's
+    attention timing."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
     for label, (b, h, t, d) in ATT_TIME.items():
@@ -1178,30 +1298,52 @@ def attention_timing(seed: int, dev, launches: int, max_err: float) -> dict:
                    for _ in range(3))
         scale = 1.0 / math.sqrt(d)
         chunk = max(1, ATT_PLAIN_PAIRS // h)
+        qh, kh, vh = (z.half() for z in (q, k, v))
+        for x in ((q, k, v), (qh, kh, vh)):
+            got = tatt.attention_pallas(*x, scale)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_attention_chunks(
+                f"attention {label} [{b}, {h}, {t}, {d}] {x[0].dtype} "
+                f"({attention_route(t, d, x[0].dtype)})", got, *x, scale, chunk))
+            del got
         ms = cuda_ms(lambda: tatt.attention_pallas(q, k, v, scale), reps=5)
         plain_ms = cuda_ms(lambda: [tatt.attention_einsum(q[i:i + chunk], k[i:i + chunk],
                                                           v[i:i + chunk], scale)
                                     for i in range(0, b, chunk)], reps=1)
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, scale=scale), reps=5)
-        qh, kh, vh = (z.half() for z in (q, k, v))
         fp16_ms = cuda_ms(lambda: tatt.attention_pallas(qh, kh, vh, scale), reps=5)
         sdpa16_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, scale=scale), reps=5)
         n = b * h
         bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
-        log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] bf16: kernel {ms:.3f} ms, plain "
+        floor_ms = mufu_floor_ms(n * t * t)
+        log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] bf16 "
+            f"({attention_route(t, d, torch.bfloat16)}): kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+            f"{bound_ms:.3f} ms ({bound_by}), exp2 floor {floor_ms:.3f} ms, "
+            f"{100 * bound_ms / ms:.2f} % of bound")
         log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] fp16: kernel {fp16_ms:.3f} ms, "
             f"scaled_dot_product_attention {sdpa16_ms:.3f} ms")
         rows[label] = {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms,
                        "fp16_ms": fp16_ms, "fp16_library_ms": sdpa16_ms}
-    return {"name": "attention", "model": "bias=True 6M width, attn_impl=pallas",
-            "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/attention.cu",
-            "replaces": "mapf_gpt_tpu/ops/attention.py:37", "launches": launches,
-            "max_abs_err": max_err, **rows["2M"], "at_85m_shape": rows["85M"]}
+    blocks_att = blocks_attention_timing(seed, dev, *ATT_TIME["85M"])
+    blocks_att["library_ms"] = rows["85M"]["library_ms"]
+    # host time of a call, at one pair of 64 keys: bf16 encodes three tensor maps, fp32 none
+    tiny = torch.randn((1, 1, 64, 32), generator=gen, device=dev)
+    host_us = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = tiny.to(dtype)
+        host_us[str(dtype).split(".")[-1]] = host_us_per_call(
+            lambda: tatt.attention_pallas(x, x, x, 0.2))
+    log(f"[timing] attention host time a call at [1, 1, 64, 32] (wrapper, tensor maps, launch): "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in host_us.items()))
+    return ({"name": "attention", "model": "bias=True 6M width, attn_impl=pallas",
+             "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/attention.cu",
+             "replaces": "mapf_gpt_tpu/ops/attention.py:37", "launches": launches,
+             "max_abs_err": max_err, **rows["2M"], "at_85m_shape": rows["85M"],
+             "host_us_per_call": host_us}, blocks_att)
 
 
 def check_rows(label: str, rows: list, steps: int, lifelong: bool) -> None:
@@ -1768,7 +1910,11 @@ def main() -> int:
     # 13. the module route with attn_impl="pallas"; 14. the bias=True rollout; 15. timing
     module_route_phase(args.seed, dev)
     att_launches, _ = bias_rollout_phase(args.seed, dev)
-    entries.append(attention_timing(args.seed, dev, att_launches, att_err))
+    att_entry, blocks_att = attention_timing(args.seed, dev, att_launches, att_err)
+    entries.append(att_entry)
+    for entry in entries:
+        if entry["name"] == "fused_blocks":
+            entry["attention"] = blocks_att
 
     # 16. the suite evaluator
     evaluator = evaluator_phase(model_2m, args.seed, dev)

@@ -56,11 +56,19 @@
 //     TMA into a ring of 128-byte-swizzled tiles, wgmma.mma_async from two
 //     consumer warpgroups, the epilogue on the accumulators: bf16 round,
 //     tanh GELU (fc), the residual add (projection, fc2);
-//   * blocks_attention: one (64-row query tile, head, context) a CTA, 16
-//     query rows a warp, the scores of 64 keys at a time in mma.sync
-//     registers (csrc/attn_tile.cuh), K and V staged in windows of 128 keys
-//     with zero rows past T; keys at or past T get e = 0, rows past T are
-//     not stored;
+//   * the attention, at T <= 256 and padded head widths 16, 32, 48 and 64
+//     (the 85M's 64 among them): csrc/attn_wgmma.cuh's persistent kernel,
+//     a TMA producer warp feeding an mbarrier ring with each (context,
+//     head)'s q, k and v (one rank-4 map over the q|k|v workspace, rows
+//     past T and columns past the head read as zeros), two wgmma consumer
+//     warpgroups, the scores in registers, e as wgmma's register operand
+//     for e V, att stored by TMA; keys at or past T get e = 0, rows past T
+//     are not stored;
+//   * blocks_attention, the other widths up to 128 and T past 256: one
+//     (64-row query tile, head, context) a CTA, 16 query rows a warp, the
+//     scores of 64 keys at a time in mma.sync registers
+//     (csrc/attn_tile.cuh), K and V staged in windows of 128 keys with zero
+//     rows past T;
 //   * thin_attention_kernel: the last position's attention, one context a
 //     CTA, a warp a head at a time in fp32 on the CUDA cores, the scores of
 //     32 keys at a time, so its shared memory does not grow with H or T.
@@ -78,6 +86,7 @@
 #include <stdint.h>
 
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 #include "gemm_tile.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -436,6 +445,8 @@ constexpr int WIDE_WINDOW =
     attn::KC * attn::KC;
 static_assert(NS == 1 || WIDE_WINDOW >= attn::KC, "a wide head's window fits shared memory");
 
+// (a template, so that the wgmma kernel is built only for the widths it takes)
+template <int DP_ = DP>
 cudaError_t attention(const bf16* qkv, bf16* att, int nc, int T, cudaStream_t stream) {
   if constexpr (NS > 1) {
     const int W = T < WIDE_WINDOW ? attn::round_up(T, attn::KC) : WIDE_WINDOW;
@@ -446,6 +457,11 @@ cudaError_t attention(const bf16* qkv, bf16* att, int nc, int T, cudaStream_t st
     const dim3 grid((T + attn::TILE - 1) / attn::TILE, H * NS, nc);
     blocks_attention_wide<<<grid, attn::WARPS * 32, smem, stream>>>(qkv, att, T, W);
     return cudaGetLastError();
+  }
+  if constexpr (NS == 1 && aw::takes(DP_)) {
+    // a CUDA error, or aw::ERR_* (fused_blocks_error_string names it)
+    if (T <= aw::T_MAX)
+      return (cudaError_t)aw::blocks_attention<DP_>(qkv, att, nc, T, H, stream);
   }
   constexpr int D1 = NS == 1 ? DP : 16;   // the register tile's head (not built for wide heads)
   const int W = T < ATT_WINDOW ? attn::round_up(T, attn::KC) : ATT_WINDOW;
@@ -553,7 +569,17 @@ int fused_blocks_forward(bf16* x, bf16* out_last, const bf16* wqkv, const bf16* 
   return 0;
 }
 
+// The layer's attention alone, as fused_blocks_forward runs it: att [nc, T,
+// EA] from the q|k|v workspace qkv [nc, T, 3 EA] (heads padded to DP), on
+// `stream`; for timing the attention and comparing it alone.
+int fused_blocks_attention(const bf16* qkv, bf16* att, int nc, int T, cudaStream_t stream) {
+  if (nc < 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  return nc == 0 ? 0 : (int)attention(qkv, att, nc, T, stream);
+}
+
 const char* fused_blocks_error_string(int code) {
+  if (code == aw::ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found in the driver";
+  if (code == aw::ERR_TENSOR_MAP) return "the driver refused an attention tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

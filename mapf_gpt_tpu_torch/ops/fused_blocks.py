@@ -77,6 +77,24 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.float() @ w.float()
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The layer's attention on bf16 q [n, H, Tq, dh], k, v [n, H, T, dh]:
+    the scores already in the exp2 domain (scale * log2(e) folded into W_q),
+    e = bf16(exp2(min(s, 100))), att = bf16((e v) / sum e)."""
+    ex = torch.exp2(_mm(q, k.transpose(-1, -2)).clamp(max=_EXP2_CLAMP)).to(torch.bfloat16)
+    denom = ex.float().sum(-1, keepdim=True)
+    return (_mm(ex, v) * (1.0 / denom)).to(torch.bfloat16)
+
+
+def attention_reference(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Plain version of the layer's attention alone: bf16 q|k|v [n, T, 3E]
+    -> att [n, T, E]."""
+    n, t, e3 = qkv.shape
+    q, k, v = (z.reshape(n, t, n_head, e3 // 3 // n_head).transpose(1, 2)
+               for z in qkv.split(e3 // 3, dim=-1))
+    return _attend(q, k, v).transpose(1, 2).reshape(n, t, e3 // 3)
+
+
 def blocks_reference(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 x [N, T, E] through the
     chunk's layers -> bf16 [N, T, E], or [N, 1, E] when last_only."""
@@ -98,11 +116,7 @@ def blocks_reference(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> t
         q = q.reshape(n, tq, h, dh).transpose(1, 2)
         k = k.reshape(n, t, h, dh).transpose(1, 2)
         v = v.reshape(n, t, h, dh).transpose(1, 2)
-        # scores already in the exp2 domain (scale * log2(e) folded into W_q)
-        ex = torch.exp2(_mm(q, k.transpose(-1, -2)).clamp(max=_EXP2_CLAMP)).to(bf16)
-        denom = ex.float().sum(-1, keepdim=True)
-        att = (_mm(ex, v) * (1.0 / denom)).to(bf16)
-        att = att.transpose(1, 2).reshape(n, tq, e)
+        att = _attend(q, k, v).transpose(1, 2).reshape(n, tq, e)
         x = (x.float() + _mm(att, stacks.wproj[l]).to(bf16).float()).to(bf16)
         xn2 = ln_f32(x.float(), stacks.g2[l]).to(bf16)
         hmid = _mm(xn2, stacks.wfc[l]).to(bf16)
@@ -120,6 +134,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_blocks_workspace.restype = ctypes.c_longlong
     lib.fused_blocks_forward.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.fused_blocks_forward.restype = i
+    lib.fused_blocks_attention.argtypes = [p, p, i, i, p]
+    lib.fused_blocks_attention.restype = i
     lib.fused_blocks_error_string.argtypes = [i]
     lib.fused_blocks_error_string.restype = ctypes.c_char_p
     return lib
@@ -285,3 +301,29 @@ def fused_blocks(x: torch.Tensor, stacks: LayerStacks, last_only: bool) -> torch
                            f"{lib.fused_blocks_error_string(rc).decode()} ({rc})")
     launches += 1
     return out if es == e else out[..., :e].contiguous()
+
+
+def blocks_attention(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """The layer's attention alone, as the stack's kernels run it: bf16
+    q|k|v [n, T, 3E] -> att [n, T, E], for timing and comparing it alone
+    (not on the forward's path, which runs it inside :func:`fused_blocks`).
+    Heads must need no padding (head dim a multiple of 16, at most 128).
+    CPU tensors take :func:`attention_reference`; CUDA tensors launch the
+    kernel or raise."""
+    if qkv.device.type == "cpu":
+        return attention_reference(qkv, n_head)
+    n, t, e3 = qkv.shape
+    e = e3 // 3
+    check_width(t, e, n_head)
+    if padded_head_dim(e // n_head) != e // n_head or stored_width(e) != e:
+        raise ValueError(f"blocks_attention: heads of {e // n_head} columns need padding")
+    check_tensor("blocks_attention", "qkv", qkv, torch.bfloat16, (n, t, 3 * e), qkv.device)
+    lib = _library(e, n_head)
+    att = torch.empty((n, t, e), dtype=torch.bfloat16, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        rc = lib.fused_blocks_attention(qkv.data_ptr(), att.data_ptr(), n, t,
+                                        torch.cuda.current_stream(qkv.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("blocks_attention kernel launch failed: "
+                           f"{lib.fused_blocks_error_string(rc).decode()} ({rc})")
+    return att

@@ -12,10 +12,12 @@ inputs:
   and the port's wrapper raises before it looks at the device;
 - ``attention`` dispatches as the JAX one: "pallas" to the kernel's
   wrapper, anything else to the plain version;
-- ``check_shape`` takes the shapes the CUDA kernel takes (any T >= 1, any
-  head dim 1..128, bf16, fp16 or fp32) and names the constraint of any other,
-  without building anything; the same comparison with JAX runs at T = 300
-  and 512 and at head dims 8, 24 and 72, which the kernel now takes;
+- ``check_shape`` takes the shapes the CUDA kernels take (any T >= 1, head
+  dims 1..672 in bf16 and 1..842 in fp16 and fp32) and names the constraint
+  of any other, without building anything; the same comparison with JAX
+  runs at T = 300 and 512 and at head dims 8, 24 and 72, which the kernel
+  takes since its two-pass redesign, and at head dims 144 and 256, which it
+  takes since heads past 128 were routed to the slab and FMA kernels;
 - the wrapper's zero columns (bf16 heads padded to a multiple of 16) change
   no output column;
 - a test-only emulation in plain PyTorch of the bf16 kernel's order of work
@@ -57,7 +59,9 @@ def _jax(q, k, v, scale, dtype, group):
 # shapes the kernel takes since its two-pass redesign: T past 256, head dims
 # that are not multiples of 16 (padded with zero columns in bf16)
 LIFTED_SHAPES = [(1, 2, 300, 32), (1, 2, 512, 32), (2, 3, 64, 8), (2, 3, 100, 24),
-                 (1, 3, 128, 72)]
+                 (1, 3, 128, 72),
+                 # heads past 128: bf16 slabs of 80 and 128 columns, fp32 on FMA
+                 (1, 3, 256, 144), (1, 2, 200, 256)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -108,7 +112,8 @@ def test_attention_dispatch_and_devices(monkeypatch):
     (256, 32, torch.bfloat16, None), (1, 16, torch.float32, None), (200, 128, torch.bfloat16, None),
     (256, 96, torch.float32, None), (0, 32, torch.bfloat16, "T must be"),
     (257, 32, torch.bfloat16, None), (256, 8, torch.bfloat16, None),
-    (256, 24, torch.bfloat16, None), (256, 144, torch.float32, "head dim"),
+    (256, 24, torch.bfloat16, None), (256, 144, torch.float32, None),
+    (256, 1024, torch.float32, "head dim"), (256, 700, torch.bfloat16, "head dim"),
     (256, 32, torch.float16, None), (256, 32, torch.float64, "dtype"),
     (1024, 72, torch.float32, None),
     (300, 1, torch.bfloat16, None), (256, 0, torch.bfloat16, "head dim"),

@@ -61,15 +61,18 @@ def test_library_is_keyed_by_included_headers(csrc):
 
 def test_kernel_sources_name_the_shared_attention_header():
     """attention.cu, fused_train.cu, fused_gpt.cu and fused_blocks.cu share
-    csrc/attn_tile.cuh; fused_gpt.cu includes csrc/wgmma.cuh, the layer
-    kernels reach it through csrc/gemm_tile.cuh; each library's key follows
-    the headers its source includes."""
-    assert [p.name for p in _build.source_files("attention")] == ["attention.cu", "attn_tile.cuh"]
+    csrc/attn_tile.cuh; attention.cu and fused_blocks.cu also share
+    csrc/attn_wgmma.cuh, which reaches csrc/wgmma.cuh through
+    csrc/gemm_tile.cuh, as the layer kernels do; fused_gpt.cu includes
+    csrc/wgmma.cuh; each library's key follows the headers its source
+    includes."""
+    for name in ("attention", "fused_blocks"):
+        assert [p.name for p in _build.source_files(name)] == [
+            f"{name}.cu", "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_gpt")] == [
         "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
-    for name in ("fused_train", "fused_blocks"):
-        assert [p.name for p in _build.source_files(name)] == [
-            f"{name}.cu", "attn_tile.cuh", "gemm_tile.cuh", "wgmma.cuh"]
+    assert [p.name for p in _build.source_files("fused_train")] == [
+        "fused_train.cu", "attn_tile.cuh", "gemm_tile.cuh", "wgmma.cuh"]
 
 
 def test_layer_kernels_share_the_hopper_gemm():
