@@ -202,11 +202,36 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    beside the plain versions and their bounds.
 20. ``--distributed`` at world size 1 over NCCL: two 6M iterations whose
    losses equal a run without it from the same seed.
+21. The training attention alone (run right after phase 2b), on the
+   route ``csrc/fused_train.cu``'s ``attention_route`` picks (named for
+   each compare, and held equal to ``fused_gpt_train.attention_route``):
+   the wgmma forward with row statistics (``csrc/attn_wgmma.cuh`` through
+   TrainIo) and the backward's query and key sides
+   (``csrc/attn_wgmma_bwd.cuh``: ``attn_bwd_q_wgmma``,
+   ``attn_bwd_kv_wgmma``) against their plain versions
+   (``train_attention_reference``, ``train_attention_backward_reference``)
+   at ``TRAIN_ATT_SHAPES`` [contexts, heads, T, head dim]: the 2M's, 6M's
+   and 85M's heads at T = 1, 64, 130, 200 and 256, head dims 16 and 48,
+   and shapes with more pairs than the grid's rings hold, so that every
+   slot is refilled; att within 0.02 * max|ref| + 0.02, m and l within
+   1e-3 * max|ref| + 1e-3, dq, dk and dv each within 0.08 * max|ref| +
+   1e-4; a second backward call equal to the first bit for bit.  Then
+   timed at ``TRAIN_ATT_TIME`` ([2048, 8, 256, 32], the 6M's micro-batch;
+   [512, 12, 256, 64], the 85M's), its outputs there held against the
+   plain versions chunk by chunk: each kernel beside its bound, the
+   exp2s' floor and the plain version, and the library's flash attention
+   on the same inputs (``scaled_dot_product_attention``'s forward, its
+   forward plus backward, and the backward alone,
+   ``aten._scaled_dot_product_flash_attention_backward`` from the
+   forward's logsumexp: yardsticks, never on the port's path).  The
+   trainer phases (9, 10, 19) read the wgmma kernels' launch counters
+   (``fused_gpt_train.wgmma_launches``) around their runs.
 
 Then an ``[expert data]`` line with phases 17-20's numbers, an
 ``[evaluator]`` line with phase 16's, the card's name and power limit, the
 kernels' JSON line (the training kernels' entries with their 85M numbers
-under ``"85M"``) and, last, ``{"ok": true, "device": {...}}``.
+under ``"85M"``, the training attention's three wgmma kernels with theirs
+under ``"at_85m_shape"``) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
 so it does without a GPU, and outside a checkout of the repository.
 """
@@ -332,6 +357,16 @@ ATT_SHAPES = ((64, 5, 256, 32), (32, 8, 256, 32), (16, 12, 256, 64), (1, 3, 256,
 ATT_STRIDED = ((32, 8, 256, 32), (8, 5, 256, 24),   # also as views of a q|k|v product
                (16, 12, 256, 64), (8, 6, 200, 48), (512, 8, 256, 32))
 ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}   # [B, H, T, D] timed
+# the training attention alone, [contexts, heads, T, head dim]: the 2M's, 6M's and
+# 85M's heads at T = 256, 200, 130, 64 and 1, head dims 16 and 48; then more pairs
+# than 132 CTAs x the pairs a ring holds (3 at D = 32, 4 at 16, 1.5 at 48 and 64)
+TRAIN_ATT_SHAPES = ((16, 5, 256, 32), (16, 8, 256, 32), (8, 12, 256, 64), (8, 8, 200, 32),
+                    (8, 8, 130, 32), (8, 8, 64, 32), (8, 8, 1, 32), (4, 12, 200, 64),
+                    (4, 12, 130, 64), (4, 12, 64, 64), (4, 12, 1, 64), (8, 16, 256, 16),
+                    (4, 6, 130, 48), (64, 8, 256, 32), (32, 12, 256, 64), (48, 6, 200, 48),
+                    (64, 16, 130, 16))
+TRAIN_ATT_TIME = {"6M": (2048, 8, 256, 32), "85M": (512, 12, 256, 64)}
+TRAIN_ATT_PLAIN = 256            # contexts per plain-version call at the timing shapes
 ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
 # the evaluator phase: one-shot specs (map, agents, seeds) of EVAL_STEPS steps, and
 # lifelong specs on the warehouse map, K = EVAL_K queued goals
@@ -871,6 +906,10 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
         layers = stacks.wqkv.shape[0]
         _, _, real = reset_batch(seed, B, STEPS, dev)
         x = embed(model, real[:n])
+        cfg = model.cfg
+        route = train_attention_route(cfg.block_size, cfg.n_embd, cfg.n_head)
+        torch.cuda.synchronize()
+        fgt.reset_wgmma_launches()
         out, xsave = fgt.train_forward(x, stacks, last_only=True)
         torch.cuda.synchronize()
         ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, True)
@@ -883,6 +922,11 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
             err, dx = compare_backward(f"{label} train backward layers {lo}-{hi - 1}",
                                        xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
             bwd_err = max(bwd_err, err)
+        counts = fgt.wgmma_launches()
+        log(f"[compare] {label} training kernels: attention route {route}, wgmma kernel "
+            f"launches {counts}")
+        if route == "wgmma" and min(counts.values()) == 0:
+            raise RuntimeError(f"{label}: the training kernels ran no wgmma attention kernel")
 
     # other widths (the 85M's, head dims 8, 16, 96 and 128, n_embd 200, T=200 and
     # 300): a 2-layer forward chunk, a 1-layer backward chunk
@@ -895,6 +939,7 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
         n = N_TRAIN_CMP["85M"]
         tokens = real[:n, :t] if t <= real.shape[1] else random_tokens(seed + t, n, cfg, dev)
         x = embed(model, tokens)
+        label = f"{label} ({train_attention_route(t, e, h)} attention)"
         out, xsave = fgt.train_forward(x, stacks, last_only=False)
         torch.cuda.synchronize()
         ref_out, ref_xsave = fgt.train_fwd_reference(x, stacks, False)
@@ -964,11 +1009,13 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
         torch.cuda.synchronize()
         fgt.fwd_launches = fgt.bwd_launches = 0
         fused_gpt.launches = fused_blocks.launches = 0
+        fgt.reset_wgmma_launches()
         t0 = time.perf_counter()
         result = train_loop.train(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = (fgt.fwd_launches, fgt.bwd_launches)
+        att_launches = fgt.wgmma_launches()
         micro = TRAIN_ITERS * TRAIN_ACCUM
         bwd_per_micro = -(-CONFIGS["6M"].n_layer // fgt._bwd_layers_per_call(CONFIGS["6M"]))
         log(f"[trainer] 6M {TRAIN_ITERS} iterations x {TRAIN_ACCUM} micro-batches of "
@@ -977,6 +1024,7 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
         if launches != (micro, micro * bwd_per_micro):
             raise RuntimeError(f"trainer: training kernel launches {launches}, expected "
                                f"{(micro, micro * bwd_per_micro)}")
+        check_wgmma_launches("trainer 6M", att_launches, CONFIGS["6M"], micro, TRAIN_BATCH)
         losses = [h["loss"] for h in result["history"]]
         evals = [(e["val_loss"], e["val_acc"]) for e in result["evals"]]
         log(f"[trainer] losses {losses}; evals (val_loss, val_acc) {evals}")
@@ -998,7 +1046,19 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
         rollout(f"6M trained here (iter {step})", spec, load_model(cfg, sd, device=dev), states,
                 B, 1, e2e=1, blocks=0)
     return {"launches": launches, "it_per_s": its, "mfu": mfu,
-            "losses": losses, "wall_s": wall}
+            "losses": losses, "wall_s": wall, "wgmma_launches": att_launches}
+
+
+def check_wgmma_launches(label: str, got: dict, cfg, micro: int, batch: int) -> None:
+    """The training attention's wgmma kernels, counted over `micro`
+    micro-batches of `batch` contexts of cfg's trainer: a forward and a
+    recompute a layer and group of contexts, each backward side once."""
+    route = fgt.attention_route(cfg.block_size, cfg.n_embd, cfg.n_head)
+    per = micro * cfg.n_layer * -(-batch // fgt.GROUP)
+    want = dict(zip(fgt.WGMMA_KERNELS, (2 * per, per, per)))
+    log(f"[trainer] {label}: training attention route {route}; wgmma kernel launches {got}")
+    if route != "wgmma" or got != want:
+        raise RuntimeError(f"{label}: wgmma attention launches {got}, expected {want}")
 
 
 def train_ops(t: int, e: int, h: int, layers: int, last_only: bool, backward: bool
@@ -1344,6 +1404,184 @@ def attention_timing(seed: int, dev, launches: int, max_err: float) -> tuple[dic
              "replaces": "mapf_gpt_tpu/ops/attention.py:37", "launches": launches,
              "max_abs_err": max_err, **rows["2M"], "at_85m_shape": rows["85M"],
              "host_us_per_call": host_us}, blocks_att)
+
+
+def train_attention_route(t: int, e: int, h: int) -> str:
+    """The training attention's route as csrc/fused_train.cu picks it, held
+    equal to fused_gpt_train.attention_route (its mirror on the CPU)."""
+    code = fgt._library().fused_train_attention_route(t, e, h)
+    route = fgt.ROUTES[code] if code in range(len(fgt.ROUTES)) else None
+    if route != fgt.attention_route(t, e, h):
+        raise RuntimeError(f"training attention T={t} n_embd={e} {h} heads: the library's "
+                           f"route {code} is not {fgt.attention_route(t, e, h)}")
+    return route
+
+
+def check_train_attention(label: str, qkv, datt, h: int, chunk: int) -> dict[str, float]:
+    """The training attention's kernels on qkv, datt against their plain
+    versions (`chunk` contexts a plain call), and the backward twice, bit
+    for bit.  Returns the max |err| of each kernel's output: "fwd" (att),
+    "q" (dq), "kv" (dk and dv)."""
+    att, m, l = fgt.train_attention(qkv, h)
+    dqkv = fgt.train_attention_backward(qkv, datt, att, m, l, h)
+    again = fgt.train_attention_backward(qkv, datt, att, m, l, h)
+    torch.cuda.synchronize()
+    if not torch.equal(dqkv, again):
+        raise RuntimeError(f"{label}: a second backward call differs from the first")
+    e = qkv.shape[-1] // 3
+    errs = dict.fromkeys(("fwd", "q", "kv"), 0.0)
+    for c0 in range(0, qkv.shape[0], chunk):
+        c = slice(c0, c0 + chunk)
+        part = f"{label} contexts {c0}..{min(c0 + chunk, qkv.shape[0]) - 1}"
+        ref_att, ref_m, ref_l = fgt.train_attention_reference(qkv[c], h)
+        errs["fwd"] = max(errs["fwd"], check_close(f"{part} att", att[c], ref_att, floor=0.02,
+                                                   argmax=False))
+        check_close(f"{part} m", m[c], ref_m, floor=1e-3, argmax=False, rel=1e-3)
+        check_close(f"{part} l", l[c], ref_l, floor=1e-3, argmax=False, rel=1e-3)
+        ref = fgt.train_attention_backward_reference(qkv[c], datt[c], h)
+        for i, name in enumerate(("dq", "dk", "dv")):
+            sl = slice(i * e, (i + 1) * e)
+            kern = "q" if name == "dq" else "kv"
+            errs[kern] = max(errs[kern], check_close(f"{part} {name}", dqkv[c, :, sl],
+                                                     ref[..., sl], floor=1e-4, argmax=False,
+                                                     rel=0.08))
+        del ref_att, ref_m, ref_l, ref
+    log(f"[compare] {label}: a second backward call equals the first bit for bit")
+    return errs
+
+
+def train_attention_phase(seed: int, dev) -> dict:
+    """21. The training attention's kernels alone: compared at
+    TRAIN_ATT_SHAPES, then compared and timed at TRAIN_ATT_TIME beside the
+    bounds, the exp2s' floor, the plain versions and the library's flash
+    attention.  Returns the timings and each kernel's largest error."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    errs = dict.fromkeys(("fwd", "q", "kv"), 0.0)
+    routes = set()
+
+    def inputs(n, h, t, d):
+        qkv = torch.randn((n, t, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        datt = torch.randn((n, t, h * d), generator=gen, device=dev).to(torch.bfloat16)
+        return qkv, datt
+
+    for n, h, t, d in TRAIN_ATT_SHAPES:
+        route = train_attention_route(t, h * d, h)
+        routes.add(route)
+        qkv, datt = inputs(n, h, t, d)
+        got = check_train_attention(f"training attention [{n}, {h}, {t}, {d}] ({route})", qkv,
+                                    datt, h, n)
+        errs = {k_: max(errs[k_], got[k_]) for k_ in errs}
+    if routes != {"wgmma"}:
+        raise RuntimeError(f"training attention: routes {sorted(routes)}, not the wgmma kernels")
+    rows = {}
+    for label, (n, h, t, d) in TRAIN_ATT_TIME.items():
+        route = train_attention_route(t, h * d, h)
+        qkv, datt = inputs(n, h, t, d)
+        got = check_train_attention(f"training attention {label} [{n}, {h}, {t}, {d}] ({route})",
+                                    qkv, datt, h, TRAIN_ATT_PLAIN)
+        errs = {k_: max(errs[k_], got[k_]) for k_ in errs}
+        att, m, l = fgt.train_attention(qkv, h)
+        scratch = torch.empty(fgt._library().fused_train_attention_scratch(n, t, h * d, h),
+                              dtype=torch.float32, device=dev)
+        dqkv = fgt.train_attention_backward(qkv, datt, att, m, l, h, scratch=scratch)
+
+        def side(sides):
+            return lambda: fgt.train_attention_backward(qkv, datt, att, m, l, h, sides=sides,
+                                                        scratch=scratch)
+
+        ms = {"fwd": cuda_ms(lambda: fgt.train_attention(qkv, h), reps=5),
+              "q": cuda_ms(side(1), reps=5), "kv": cuda_ms(side(2), reps=5)}
+        ms["plain_fwd"] = cuda_ms(lambda: [fgt.train_attention_reference(
+            qkv[i:i + TRAIN_ATT_PLAIN], h) for i in range(0, n, TRAIN_ATT_PLAIN)], reps=1)
+        ms["plain_bwd"] = cuda_ms(lambda: [fgt.train_attention_backward_reference(
+            qkv[i:i + TRAIN_ATT_PLAIN], datt[i:i + TRAIN_ATT_PLAIN], h)
+            for i in range(0, n, TRAIN_ATT_PLAIN)], reps=1)
+        q, k, v = (z.reshape(n, t, h, d).transpose(1, 2).detach().requires_grad_()
+                   for z in qkv.split(h * d, dim=-1))
+        do = datt.reshape(n, t, h, d).transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        scale = 1.0 / math.sqrt(d)
+        with torch.no_grad():
+            ms["sdpa_fwd"] = cuda_ms(lambda: sdpa(q, k, v, scale=scale), reps=5)
+        ms["sdpa_fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(q, k, v, scale=scale), (q, k, v), do), reps=5)
+        ms["sdpa_bwd"], grads = flash_backward(q.detach(), k.detach(), v.detach(), do, scale)
+        flash_diff = (torch.cat([g.transpose(1, 2).reshape(n, t, h * d) for g in grads], -1)
+                      .float() - dqkv.float()).abs().max().item()
+        del q, k, v, do, grads, dqkv
+        # bounds: each input read once, each output written once; T^2 exp2s a pair a kernel
+        pairs, act, stat = n * h, n * t * h * d * 2, n * h * t * 4
+        exps = pairs * t * t
+        # (q side: q, k, v, dA, m and l in, dq and each row's lse and delta out; the
+        # forward's att, which the kernel reads for delta, is no input dq needs)
+        bounds = {"fwd": bound(4 * pairs * t * t * d, exps, 3 * act + act + 2 * stat),
+                  "q": bound(6 * pairs * t * t * d, exps, 4 * act + 2 * stat + act + 2 * stat),
+                  "kv": bound(8 * pairs * t * t * d, exps, 4 * act + 2 * stat + 2 * act)}
+        floor_ms = mufu_floor_ms(exps)
+        for kern, name in (("fwd", "forward with statistics"), ("q", "attn_bwd_q_wgmma"),
+                           ("kv", "attn_bwd_kv_wgmma")):
+            log(f"[timing] training attention {label} [{n}, {h}, {t}, {d}] {name}: "
+                f"{ms[kern]:.3f} ms, bound {bounds[kern][0]:.3f} ms ({bounds[kern][1]}), exp2 "
+                f"floor {floor_ms:.3f} ms, {100 * bounds[kern][0] / ms[kern]:.2f} % of bound")
+        log(f"[timing] training attention {label}: plain forward {ms['plain_fwd']:.3f} ms, plain "
+            f"backward {ms['plain_bwd']:.3f} ms; scaled_dot_product_attention forward "
+            f"{ms['sdpa_fwd']:.3f} ms, forward + backward {ms['sdpa_fwd_bwd']:.3f} ms against "
+            f"{ms['fwd'] + ms['q'] + ms['kv']:.3f}; the flash backward alone "
+            f"{ms['sdpa_bwd']:.3f} ms against {ms['q'] + ms['kv']:.3f} (its dq|dk|dv within "
+            f"{flash_diff:.3g} of ours)")
+        rows[label] = {"shape": [n, h, t, d], "ms": ms,
+                       "bound_ms": {k_: b[0] for k_, b in bounds.items()},
+                       "bound_by": {k_: b[1] for k_, b in bounds.items()},
+                       "exp2_floor_ms": floor_ms}
+        del qkv, datt, att, m, l, scratch
+    seconds = time.perf_counter() - t0
+    log(f"[done] training attention phase {seconds:.1f} s")
+    return {"rows": rows, "err": errs, "seconds": seconds}
+
+
+def flash_backward(q, k, v, do, scale: float) -> tuple[float, tuple]:
+    """ms of one call of aten's flash-attention backward (dq, dk and dv of
+    [B, H, T, D] q, k, v from the forward's output and logsumexp), the
+    library call for the pair of training backward kernels, and its
+    (dq, dk, dv); the forward that feeds it is run once, untimed."""
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed_, offset, _ = aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, False, False, scale=scale)
+
+    def call():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed_, offset, scale=scale)
+
+    return cuda_ms(call, reps=5), call()
+
+
+def train_attention_entries(phase: dict, launches: dict) -> list[dict]:
+    """The kernels JSON line's entries of the training attention's wgmma
+    kernels: the 6M shape's numbers, the 85M's beside them, `launches` from
+    the 6M trainer's run (phase 10)."""
+    out = []
+    for kern, name, source, replaces in (
+            ("fwd", "attn_wgmma_kernel", "mapf_gpt_tpu_torch/csrc/attn_wgmma.cuh",
+             "mapf_gpt_tpu/ops/fused_gpt_train.py:98"),
+            ("q", "attn_bwd_q_wgmma", "mapf_gpt_tpu_torch/csrc/attn_wgmma_bwd.cuh",
+             "mapf_gpt_tpu/ops/fused_gpt_train.py:133"),
+            ("kv", "attn_bwd_kv_wgmma", "mapf_gpt_tpu_torch/csrc/attn_wgmma_bwd.cuh",
+             "mapf_gpt_tpu/ops/fused_gpt_train.py:133")):
+        # library_ms: the flash forward for the forward; the flash backward, which
+        # computes dq, dk and dv at once, for each of the two backward kernels
+        def row(r):
+            return {"ms": r["ms"][kern], "plain_ms": r["ms"]["plain_" + ("fwd" if kern == "fwd"
+                                                                         else "bwd")],
+                    "bound_ms": r["bound_ms"][kern], "bound_by": r["bound_by"][kern],
+                    "library_ms": r["ms"]["sdpa_fwd" if kern == "fwd" else "sdpa_bwd"],
+                    "exp2_floor_ms": r["exp2_floor_ms"],
+                    "sdpa_fwd_bwd_ms": r["ms"]["sdpa_fwd_bwd"], "shape": r["shape"]}
+        out.append({"name": name, "model": "6M trainer (training attention)", "route": "cuda",
+                    "source": source, "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": phase["err"][kern], **row(phase["rows"]["6M"]),
+                    "at_85m_shape": row(phase["rows"]["85M"])})
+    return out
 
 
 def check_rows(label: str, rows: list, steps: int, lifelong: bool) -> None:
@@ -1723,9 +1961,13 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     # training kernels' counters set to 0 just before and read just after
     torch.cuda.synchronize()
     fgt.fwd_launches = fgt.bwd_launches = 0
+    fgt.reset_wgmma_launches()
     losses_ref = [step_fn(x, y).item()]
     torch.cuda.synchronize()
     ref_launches = (fgt.fwd_launches, fgt.bwd_launches)
+    ref_att_launches = fgt.wgmma_launches()
+    check_wgmma_launches("trainer 85M, reference iteration", ref_att_launches, cfg,
+                         REF_ACCUM_85M, batch)
     if ref_launches != (REF_ACCUM_85M, REF_ACCUM_85M * bwd_per_micro):
         raise RuntimeError(f"trainer 85M: {ref_launches} training kernel launches in an iteration "
                            f"at {batch} x {REF_ACCUM_85M}, expected "
@@ -1784,6 +2026,7 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     return {"launches": launches, "losses": losses, "evals": evals, "wall_s": wall,
             "peak_memory_bytes": peak, "memory_estimate_bytes": MEM_85M_ESTIMATE,
             "ref_iteration_s": iter_times, "ref_it_per_s": 1 / iter_s, "ref_mfu": mfu,
+            "ref_wgmma_launches": ref_att_launches,
             "fwd": {"n_contexts": batch, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
                     "bound_ms": fwd_bound, "bound_by": fwd_by, "max_abs_err": fwd_err,
                     "launches_per_iteration": launches[0] // iters,
@@ -1884,6 +2127,8 @@ def main() -> int:
     # 12. the attention kernel against its plain version, first; 2b. the layer kernels' GEMM
     att_err = attention_phase(args.seed, dev)
     gemm_rows = gemm_phase(args.seed, dev)
+    # 21. the training attention's wgmma kernels alone
+    train_att = train_attention_phase(args.seed, dev)
 
     # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
@@ -1905,6 +2150,7 @@ def main() -> int:
     entries += train_timing(model_6m.train().requires_grad_(), args.seed, dev, fwd_err, bwd_err,
                             trainer)
     entries[-1]["gemm_yardstick"] = gemm_rows["6M backward dh Wfc^T"]
+    entries += train_attention_entries(train_att, trainer["wgmma_launches"])
     log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
 
     # 13. the module route with attn_impl="pallas"; 14. the bias=True rollout; 15. timing

@@ -42,6 +42,13 @@
 // 64 wide), swizzled by TMA at the span RB (128, 64 or 32 bytes), which the
 // wgmma descriptors name: K-major for Q (A) and K (B), N-major for V (B).
 //
+// csrc/fused_train.cu runs the attention's arithmetic (BLOCKS = false) over
+// the layer stack's q|k|v workspace as the training forward and the
+// backward's recompute (mapf_gpt_tpu/ops/fused_gpt_train.py::_fwd_kernel and
+// ::_bwd_kernel), through TrainIo, which also stores each row's statistics
+// m = max(s) c2 and l = sum 2^(s c2 - m) for the backward
+// (csrc/attn_wgmma_bwd.cuh) when asked.
+//
 // Limits (the callers route other shapes to csrc/attn_tile.cuh's kernels):
 // T from 1 to 256; q, k, v and o with 16-byte aligned rows and strides
 // (TMA); D in {16, 32, 48, 64}.
@@ -234,14 +241,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// 1 / the sum of each of the thread's two rows from its 16 partial sums
-// rs[j % 4][e] (e >> 1 the row), the quad's four lanes added.
-__device__ __forceinline__ void row_inverses(const float (*rs)[4], float inv[2]) {
+// The sum of each of the thread's two rows from its 16 partial sums
+// rs[j % 4][e] (e >> 1 the row), the quad's four lanes added, and 1 / it.
+__device__ __forceinline__ void row_sums(const float (*rs)[4], float sum[2], float inv[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int a = 2 * r, b = 2 * r + 1;
-    inv[r] = 1.f / quad_sum(((rs[0][a] + rs[0][b]) + (rs[1][a] + rs[1][b])) +
-                           ((rs[2][a] + rs[2][b]) + (rs[3][a] + rs[3][b])));
+    sum[r] = quad_sum(((rs[0][a] + rs[0][b]) + (rs[1][a] + rs[1][b])) +
+                      ((rs[2][a] + rs[2][b]) + (rs[3][a] + rs[3][b])));
+    inv[r] = 1.f / sum[r];
   }
 }
 
@@ -257,6 +265,7 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
 // csrc/attention.cu's operands: q, k, v and o [B, H, T, D] through rank-4
 // tensor maps (D, T, H, B) built from their own strides.
 struct AttnIo {
+  static constexpr bool STATS = false;
   CUtensorMap q, k, v, o;
   int H;
   __device__ __forceinline__ void load(int pair, unsigned char* st, int tile, uint64_t* bar) const {
@@ -274,6 +283,7 @@ struct AttnIo {
 // T, 3 H, DP] through one rank-4 map (DP, 3 H, T, n), head h's q, k and v
 // at h, H + h and 2 H + h; att [n, T, EA] as (DP, H, T, n).
 struct BlocksIo {
+  static constexpr bool STATS = false;
   CUtensorMap qkv, att;
   int H;
   __device__ __forceinline__ void load(int pair, unsigned char* st, int tile, uint64_t* bar) const {
@@ -284,6 +294,27 @@ struct BlocksIo {
   }
   __device__ __forceinline__ void store(int pair, int row, const void* src) const {
     tma_store_4d(&att, src, 0, pair % H, row, pair / H);
+  }
+};
+
+// csrc/fused_train.cu's: BlocksIo's operands, and (m not null) each row's
+// statistics m, l [pairs, T] fp32 for the backward.
+struct TrainIo : BlocksIo {
+  static constexpr bool STATS = true;
+  float *m, *l;
+  int T;
+  // rows g and g + 8 of the warp's 16 from `row0` (lane c4 = 0 of each quad)
+  __device__ __forceinline__ void stats(int pair, int row0, const float mr[2],
+                                        const float sum[2]) const {
+    if (m == nullptr || (threadIdx.x & 3)) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + ((threadIdx.x & 31) >> 2) + 8 * r;
+      if (row < T) {
+        m[(size_t)pair * T + row] = mr[r];
+        l[(size_t)pair * T + row] = sum[r];
+      }
+    }
   }
 };
 
@@ -319,7 +350,7 @@ __device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, in
   unsigned pa[NT / 2][4];
   // the rows' max and sum, each over 16 accumulators [j % 4][e] so that
   // one warp's dependency chains do not set the pace
-  float rs[4][4] = {}, inv[2];
+  float rs[4][4] = {}, sum[2], inv[2];
   if constexpr (!BLOCKS) {
     // p = 2^(s c2 - m) / l with m = max(s c2), taken as max(s) |c2| over s
     // or -s by the sign of c2: one fma and one ex2 a score.  Masked keys
@@ -375,7 +406,8 @@ __device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, in
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) rs[j % 4][e] += sc[j][e];
-    row_inverses(rs, inv);
+    row_sums(rs, sum, inv);
+    if constexpr (Io::STATS) io.stats(pair, t * ROWS + warp * 16, mr, sum);
     // P as the A fragments of 16 keys (n8 tiles 2 kk and 2 kk + 1), normalised, rounded
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
@@ -409,7 +441,7 @@ __device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, in
         rs[kk % 4][2 * (i & 1)] += __uint_as_float(u << 16);
         rs[kk % 4][2 * (i & 1) + 1] += __uint_as_float(u & 0xffff0000u);
       }
-    row_inverses(rs, inv);
+    row_sums(rs, sum, inv);
   }
   if (Geo<D>::TICKET && tid == 0) gemm::mbar_arrive(ticket);
 
@@ -577,6 +609,30 @@ int blocks_attention(const bf16* qkv, bf16* att, int nc, int T, int H, cudaStrea
   if (rc != 0) return rc;
   io.H = H;
   return launch<D, bf16, true>(io, nc * H, T, 1.f, stream);
+}
+
+// att = the training attention of nc contexts x H heads (csrc/fused_train.cu,
+// the attention's arithmetic with scale = 1/sqrt(dh)): qkv [nc, T, 3 EA], att
+// [nc, T, EA], EA = H D, 1 <= T <= 256; and each row's statistics m, l [nc, H,
+// T] when m is not null.
+template <int D>
+int train_attention(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T, int H,
+                    float scale, cudaStream_t stream) {
+  if (T < 1 || T > T_MAX) return (int)cudaErrorInvalidValue;
+  TrainIo io;
+  const cuuint64_t ea = (cuuint64_t)H * D;
+  const cuuint64_t dq[4] = {(cuuint64_t)D, 3 * (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)nc};
+  const cuuint64_t sq[3] = {D * 2, 3 * ea * 2, 3 * ea * 2 * T};
+  const cuuint64_t da[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)nc};
+  const cuuint64_t sa[3] = {D * 2, ea * 2, ea * 2 * T};
+  int rc = encode<D>(&io.qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qkv, dq, sq, 2, T_MAX);
+  if (rc == 0) rc = encode<D>(&io.att, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, att, da, sa, 2, 16);
+  if (rc != 0) return rc;
+  io.H = H;
+  io.m = m;
+  io.l = l;
+  io.T = T;
+  return launch<D, bf16, false>(io, nc * H, T, scale * LOG2E, stream);
 }
 
 #undef AW_ACC4

@@ -59,14 +59,21 @@
 //   * ln_kernel (LN forward), ln_bwd_kernel (a warp per row: dx += LN
 //     backward, dxb = bf16(dx)) and dg_partial_kernel (the gain gradient,
 //     column sums over fixed row blocks, reduced like the weights');
-//   * the attention: the forward and the backward's recompute run
-//     attn::launch_fwd (csrc/attn_tile.cuh, shared with csrc/attention.cu),
-//     one CTA a (context, head), a row's scores in mma.sync accumulators;
-//     the recompute also writes each row's max and sum.  The backward's
-//     attn_bwd_q_kernel (delta and dq) and attn_bwd_kv_kernel (dk and dv)
-//     recompute p from those, so no T x T buffer exists and nothing is
-//     summed by atomics; each stages the other side's rows in windows of
-//     its shared memory's size, reloaded in turn when T is past one.
+//   * the attention, routed by shape (attention_route, the one place of
+//     that rule): at T <= 256 and padded head widths 16, 32, 48 and 64 (the
+//     models' heads), the forward and the backward's recompute run
+//     csrc/attn_wgmma.cuh's persistent wgmma kernel (TMA producer, mbarrier
+//     ring, two consumer warpgroups; shared with csrc/attention.cu and
+//     csrc/fused_blocks.cu), the recompute also writing each row's max and
+//     sum, and the backward csrc/attn_wgmma_bwd.cuh's attn_bwd_q_wgmma
+//     (delta and dq) and attn_bwd_kv_wgmma (dk and dv) on the same
+//     machinery.  Other shapes run attn::launch_fwd (csrc/attn_tile.cuh),
+//     one CTA a (context, head), a row's scores in mma.sync accumulators,
+//     and attn_bwd_q_kernel and attn_bwd_kv_kernel below.  Both backwards
+//     recompute p from the statistics, so no T x T buffer exists and
+//     nothing is summed by atomics; the mma.sync ones stage the other
+//     side's rows in windows of their shared memory's size, reloaded in
+//     turn when T is past one.
 // Heads are laid out padded: each head's q, k, v, attention and their
 // gradients take DP = dh rounded up to 16 columns (the attention tiles'
 // depth), so Wqkv is [E, 3 H DP] and Wproj [H DP, E], with zero columns and
@@ -92,6 +99,8 @@
 #include <type_traits>
 
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
+#include "attn_wgmma_bwd.cuh"
 #include "gemm_tile.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -873,13 +882,46 @@ cudaError_t with_slab_width(int dv, Fn f) {
   }
 }
 
-// att = the attention of qkv [nc, T, 3 EA] -> [nc, T, EA] (attn::launch_fwd
-// over the nc x H (context, head) pairs, or attn::launch_fwd_wide for heads
-// past 128 columns), and each row's statistics m, l [nc, H, T] when not null.
+// The attention's kernels for T and the heads: the wgmma kernels
+// (csrc/attn_wgmma.cuh, csrc/attn_wgmma_bwd.cuh) at T <= 256 and padded head
+// widths 16, 32, 48 and 64, the mma.sync tiles at the other widths up to 128
+// and at T past 256, the slabs past 128 columns.
+enum Route { ROUTE_WGMMA = 0, ROUTE_TILE = 1, ROUTE_WIDE = 2 };
+Route attention_route(int T, Heads hd) {
+  if (hd.NS > 1) return ROUTE_WIDE;
+  return T <= aw::T_MAX && aw::takes(hd.DP) ? ROUTE_WGMMA : ROUTE_TILE;
+}
+
+// Launches of the wgmma route's kernels (the forward with or without
+// statistics, the query side, the key side), counted where they are launched.
+long long wgmma_launches[3] = {0, 0, 0};
+
+// f(std::integral_constant<int, D>()) for a width the wgmma kernels take.
+template <typename Fn>
+int with_wgmma_width(int d, Fn f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    default: return f(std::integral_constant<int, 64>());
+  }
+}
+
+// att = the attention of qkv [nc, T, 3 EA] -> [nc, T, EA] over the nc x H
+// (context, head) pairs on the route of attention_route, and each row's
+// statistics m, l [nc, H, T] when not null.
 cudaError_t attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T,
                           Heads hd, cudaStream_t stream) {
   const long long E3 = 3LL * hd.EA;
   const attn::Strides sqkv{T * E3, hd.DP, E3}, so{(long long)T * hd.EA, hd.DP, hd.EA};
+  if (attention_route(T, hd) == ROUTE_WGMMA) {
+    const int rc = with_wgmma_width(hd.DP, [&](auto dp) {
+      return aw::train_attention<decltype(dp)::value>(qkv, att, m, l, nc, T, hd.H,
+                                                     attn_scale(hd.dh), stream);
+    });
+    if (rc == 0) ++wgmma_launches[0];
+    return (cudaError_t)rc;
+  }
   if (hd.NS > 1)
     return with_slab_width(hd.DV, [&](auto dv) {
       return attn::launch_fwd_wide<decltype(dv)::value>(
@@ -944,9 +986,24 @@ cudaError_t attention_bwd_tile(const bf16* qkv, const bf16* datt, const float* m
   return cudaGetLastError();
 }
 
-cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const float* m, const float* l,
-                          float* delta, bf16* dqkv, int nc, int T, Heads hd,
-                          cudaStream_t stream) {
+// dqkv [nc, T, 3 EA] from qkv, datt and att [nc, T, EA] and the forward's m,
+// l [nc, H, T], on the route of attention_route; delta is the query side's
+// scratch for the key side (bwd_scratch floats).  sides (the wgmma route):
+// 1 the query side alone, 2 the key side alone, 3 both.
+cudaError_t attention_bwd(const bf16* qkv, const bf16* datt, const bf16* att, const float* m,
+                          const float* l, float* delta, bf16* dqkv, int nc, int T, Heads hd,
+                          cudaStream_t stream, int sides = 3) {
+  if (attention_route(T, hd) == ROUTE_WGMMA) {
+    const int rc = with_wgmma_width(hd.DP, [&](auto dp) {
+      return awb::train_attention_bwd<decltype(dp)::value>(
+          qkv, datt, att, m, l, delta, dqkv, nc, T, hd.H, attn_scale(hd.dh), sides, stream);
+    });
+    if (rc == 0) {
+      wgmma_launches[1] += sides & 1;
+      wgmma_launches[2] += (sides >> 1) & 1;
+    }
+    return (cudaError_t)rc;
+  }
   if (hd.NS > 1)
     return with_slab_width(hd.DV, [&](auto dv) {
       return attention_bwd_wide<decltype(dv)::value>(qkv, datt, m, l, delta, dqkv, nc, T, hd,
@@ -981,6 +1038,12 @@ FwdBufs fwd_layout(unsigned char* base, Workspace& w, size_t rows, int E, int F,
   return b;
 }
 
+// Floats of the attention backward's scratch for nc contexts: delta [nc, H,
+// T] (the mma.sync route), or lse and delta [nc H, 2, 256] (the wgmma route).
+size_t bwd_scratch(int nc, int T, Heads hd) {
+  return (size_t)nc * hd.H * (attention_route(T, hd) == ROUTE_WGMMA ? 2 * aw::T_MAX : T);
+}
+
 struct BwdBufs {
   float *dx, *hmid, *dxn, *mu, *rs, *partial, *m, *l, *delta;
   bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv;
@@ -1006,10 +1069,11 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int F
   const size_t gparts = ((rows + ROWS_PER_PART - 1) / ROWS_PER_PART) * E;
   part = gparts > part ? gparts : part;
   b.partial = reinterpret_cast<float*>(base + w.take(part * 4));
-  // the attention's row statistics and delta, [g, H, T] each
+  // the attention's row statistics [g, H, T] each, and the query side's
+  // scratch for the key side
   b.m = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
   b.l = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
-  b.delta = reinterpret_cast<float*>(base + w.take((size_t)g * hd.H * T * 4));
+  b.delta = reinterpret_cast<float*>(base + w.take(bwd_scratch(g, T, hd) * 4));
   b.dxb = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.xn = reinterpret_cast<bf16*>(base + w.take(rows * E * 2));
   b.hact = reinterpret_cast<bf16*>(base + w.take(rows * F * 2));
@@ -1147,7 +1211,7 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
                                   stream));
       RETURN_IF_ERROR((gemm::run<false, true>(b.dxb, E, Wproj, E, M, EA, E, EpiBf16{b.datt, EA},
                                               stream)));
-      RETURN_IF_ERROR(attention_bwd(b.qkv, b.datt, b.m, b.l, b.delta, b.dqkv, nc, T, hd,
+      RETURN_IF_ERROR(attention_bwd(b.qkv, b.datt, b.att, b.m, b.l, b.delta, b.dqkv, nc, T, hd,
                                     stream));
       RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, M, b.partial, dwqkv + (size_t)l * E * E3,
                                   stream));
@@ -1238,7 +1302,55 @@ int fused_train_gemm(const bf16* A, const bf16* B, void* C, int M, int N, int K,
   return (int)err;
 }
 
+// The attention's route for T, n_embd E and H heads (0 the wgmma kernels, 1
+// the mma.sync tiles, 2 the slabs), -1 for a shape the kernels do not take.
+int fused_train_attention_route(int T, int E, int H) {
+  return shape_ok(T, E, H) ? (int)attention_route(T, heads_of(E, H)) : -1;
+}
+
+// The training attention alone, for its checks and timing (the trainer runs
+// it inside fused_train_forward and fused_train_backward): qkv [nc, T, 3 EA]
+// (heads padded to DP columns, EA = H DP) -> att [nc, T, EA] and, when m is
+// not null, the rows' statistics m, l [nc, H, T].
+int fused_train_attention_fwd(const bf16* qkv, bf16* att, float* m, float* l, int nc, int T,
+                              int E, int H, cudaStream_t stream) {
+  if (!shape_ok(T, E, H) || nc < 0) return (int)cudaErrorInvalidValue;
+  if (nc == 0) return 0;
+  return (int)attention_fwd(qkv, att, m, l, nc, T, heads_of(E, H), stream);
+}
+
+// Floats of the scratch fused_train_attention_bwd takes for nc contexts.
+long long fused_train_attention_scratch(int nc, int T, int E, int H) {
+  return shape_ok(T, E, H) ? (long long)bwd_scratch(nc, T, heads_of(E, H)) : -1;
+}
+
+// dqkv [nc, T, 3 EA] from qkv, datt [nc, T, EA], the forward's att and m, l
+// (fused_train_attention_fwd); sides as attention_bwd.
+int fused_train_attention_bwd(const bf16* qkv, const bf16* datt, const bf16* att,
+                              const float* m, const float* l, float* scratch, bf16* dqkv,
+                              int nc, int T, int E, int H, int sides, cudaStream_t stream) {
+  if (!shape_ok(T, E, H) || nc < 0 || sides < 1 || sides > 3) return (int)cudaErrorInvalidValue;
+  if (nc == 0) return 0;
+  return (int)attention_bwd(qkv, datt, att, m, l, scratch, dqkv, nc, T, heads_of(E, H), stream,
+                            sides);
+}
+
+// Launches of the wgmma route's kernels since the last reset: kind 0 the
+// forward (with or without statistics), 1 attn_bwd_q_wgmma, 2
+// attn_bwd_kv_wgmma; kind -1 resets all three to 0 and returns 0.
+long long fused_train_wgmma_launches(int kind) {
+  if (kind == -1) {
+    wgmma_launches[0] = wgmma_launches[1] = wgmma_launches[2] = 0;
+    return 0;
+  }
+  return kind >= 0 && kind < 3 ? wgmma_launches[kind] : -1;
+}
+
 const char* fused_train_error_string(int code) {
+  if (code == aw::ERR_NO_ENCODER)
+    return "cuTensorMapEncodeTiled is not available (the wgmma attention's TMA)";
+  if (code == aw::ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused an attention tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -27,6 +27,17 @@ Port of ``mapf_gpt_tpu/ops/fused_gpt_train.py``:
   (``_bwd_layers_per_call``).  The top gradient is zero at every position
   but the last.  The weight gradients leave it in
   the stacks' dtype (bf16 matrices, fp32 gains).
+- :func:`train_attention` and :func:`train_attention_backward` run the
+  kernels' attention alone (forward with row statistics; dq|dk|dv), for
+  checks and timing on the card, beside their plain versions
+  :func:`train_attention_reference` and
+  :func:`train_attention_backward_reference` (the attention of
+  ``train_fwd_reference`` and ``train_bwd_reference``).
+  :func:`attention_route` names the kernels a shape takes (``csrc/fused_train.cu``'s
+  ``attention_route``): "wgmma" (``csrc/attn_wgmma.cuh`` and
+  ``csrc/attn_wgmma_bwd.cuh``) at T <= 256 and head widths padded to 16,
+  32, 48 or 64, "tile" (``csrc/attn_tile.cuh``'s mma.sync tiles) at the
+  other widths up to 128 and at T past 256, "wide" (the slabs) past 128.
 - :func:`fused_loss_fn` is ``train_step.loss_fn`` through the kernels:
   embedding (ids read as JAX indexing reads them, as the JAX function's
   ``wte[tokens]``), the stack, fp32 LN_f and the tied head, cross-entropy
@@ -58,6 +69,11 @@ GROUP = 256    # contexts a kernel call processes at a time
 
 fwd_launches = 0   # forward kernel calls by train_forward; callers may reset them to 0
 bwd_launches = 0   # backward kernel calls by train_backward
+ROUTES = ("wgmma", "tile", "wide")   # csrc/fused_train.cu's attention_route codes
+WGMMA_KERNELS = ("attn_wgmma_kernel", "attn_bwd_q_wgmma", "attn_bwd_kv_wgmma")
+_WGMMA_WIDTHS = (16, 32, 48, 64)   # padded head widths of the wgmma kernels
+_T_WGMMA = 256                     # their longest T
+_D_TILE = 128                      # the widest head of the mma.sync tiles; slabs past it
 
 
 class TrainStacks(NamedTuple):
@@ -231,13 +247,14 @@ def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainSt
 # the kernels
 # --------------------------------------------------------------------------
 
-def check_train_width(t: int, e: int, n_head: int) -> None:
+def check_train_width(t: int, e: int, n_head: int) -> str:
     """Raise ValueError, naming the constraint, unless csrc/fused_train.cu
     takes T=t, n_embd=e and n_head heads: any T >= 1, any n_embd (one that is
     not a multiple of 8 runs padded with zero columns,
     :func:`fused_blocks.kernel_layout`), head dims up to 512 (one that is not
     a multiple of 16 runs padded with zero columns, one past 128 in slabs,
-    :func:`fused_blocks.padded_head_dim`)."""
+    :func:`fused_blocks.padded_head_dim`).  Returns the attention's route
+    (:func:`attention_route`)."""
     if t < 1:
         raise ValueError(f"fused_train: T must be at least 1; got {t}")
     if n_head <= 0 or e % n_head:
@@ -245,6 +262,19 @@ def check_train_width(t: int, e: int, n_head: int) -> None:
     dh = e // n_head
     if dh > 512:
         raise ValueError(f"fused_train: head dim must be from 1 up to 512; got {dh}")
+    return attention_route(t, e, n_head)
+
+
+def attention_route(t: int, e: int, n_head: int) -> str:
+    """The attention kernels csrc/fused_train.cu runs for T=t, n_embd e and
+    n_head heads (its ``attention_route``, which ``chip_smoke.py`` holds
+    this to): "wgmma" at T <= 256 with the head padded to 16, 32, 48 or 64
+    columns, "tile" at the other heads up to 128 columns and at T past 256,
+    "wide" past 128."""
+    dh = e // n_head
+    if dh > _D_TILE:
+        return "wide"
+    return "wgmma" if t <= _T_WGMMA and padded_head_dim(dh) in _WGMMA_WIDTHS else "tile"
 
 
 def _unpad_grads(grads: tuple, e: int, n_head: int) -> tuple:
@@ -266,6 +296,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_train_workspace.argtypes = [i] * 5
     lib.fused_train_workspace.restype = ctypes.c_longlong
+    lib.fused_train_attention_route.argtypes = [i] * 3
+    lib.fused_train_attention_route.restype = i
+    lib.fused_train_attention_fwd.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.fused_train_attention_fwd.restype = i
+    lib.fused_train_attention_scratch.argtypes = [i] * 4
+    lib.fused_train_attention_scratch.restype = ctypes.c_longlong
+    lib.fused_train_attention_bwd.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.fused_train_attention_bwd.restype = i
+    lib.fused_train_wgmma_launches.argtypes = [i]
+    lib.fused_train_wgmma_launches.restype = ctypes.c_longlong
     lib.fused_train_forward.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.fused_train_forward.restype = i
     lib.fused_train_backward.argtypes = [p] * 16 + [i] * 6 + [p]
@@ -321,12 +361,12 @@ def train_forward(x: torch.Tensor, stacks: TrainStacks, last_only: bool):
     global fwd_launches
     if x.device.type == "cpu":
         return train_fwd_reference(x, stacks, last_only)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_train: no kernel for device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"fused_train: x must be [N, T, E]; got {tuple(x.shape)}")
     n, t, e = x.shape
     check_train_width(t, e, stacks.n_head)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {x.device}")
     dev = x.device
     check_tensor("fused_train", "x", x, torch.bfloat16, (n, t, e), dev)
     layers = _check_stacks(stacks, e, dev)
@@ -359,12 +399,12 @@ def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks)
     global bwd_launches
     if dxin.device.type == "cpu":
         return train_bwd_reference(xsave, dxin, stacks)
-    if dxin.device.type != "cuda":
-        raise ValueError(f"fused_train: no kernel for device {dxin.device}")
     if dxin.dim() != 3:
         raise ValueError(f"fused_train: dxin must be [N, T, E]; got {tuple(dxin.shape)}")
     n, t, e = dxin.shape
     check_train_width(t, e, stacks.n_head)
+    if dxin.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {dxin.device}")
     dev = dxin.device
     layers = _check_stacks(stacks, e, dev)
     check_tensor("fused_train", "xsave", xsave, torch.bfloat16, (2 * layers, n, t, e), dev)
@@ -388,6 +428,121 @@ def train_backward(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainStacks)
     _raise_on(lib, rc, "backward")
     bwd_launches += 1
     return (dx if es == e else dx[..., :e].contiguous()), _unpad_grads(grads, e, stacks.n_head)
+
+
+def wgmma_launches() -> dict[str, int]:
+    """Launches of the wgmma route's attention kernels (``WGMMA_KERNELS``:
+    the forward with or without statistics, the query side, the key side)
+    since :func:`reset_wgmma_launches`, counted by the library where it
+    launches them: inside ``train_forward`` and ``train_backward`` and the
+    attention run alone."""
+    lib = _library()
+    return {name: lib.fused_train_wgmma_launches(k) for k, name in enumerate(WGMMA_KERNELS)}
+
+
+def reset_wgmma_launches() -> None:
+    _library().fused_train_wgmma_launches(-1)
+
+
+def _heads_nopad(what: str, qkv: torch.Tensor, n_head: int) -> tuple[int, int, int]:
+    n, t, e3 = qkv.shape
+    e = e3 // 3
+    check_train_width(t, e, n_head)
+    dh = e // n_head
+    if dh > _D_TILE or padded_head_dim(dh) != dh:
+        raise ValueError(f"{what}: heads of {dh} columns need padding")
+    return n, t, e
+
+
+def train_attention_reference(qkv: torch.Tensor, n_head: int):
+    """Plain version of the kernels' attention forward with statistics:
+    bf16 q|k|v [N, T, 3E] -> (att bf16 [N, T, E], m, l fp32 [N, H, T]): att
+    as ``train_fwd_reference`` computes it, m = max(s) scale log2(e) and l =
+    sum 2^(s scale log2(e) - m) per row."""
+    n, t, e3 = qkv.shape
+    e = e3 // 3
+    p, q, k, v = _probs(qkv, n_head)
+    att = _merge(_mm(p.to(torch.bfloat16), v).to(torch.bfloat16))
+    x = _mm(q, k.transpose(-1, -2)) * (math.log2(math.e) / math.sqrt(e // n_head))
+    m = x.amax(-1)
+    return att, m, torch.exp2(x - m[..., None]).sum(-1)
+
+
+def train_attention(qkv: torch.Tensor, n_head: int):
+    """The kernels' attention forward alone, as the backward's recompute runs
+    it: bf16 q|k|v [N, T, 3E] -> (att [N, T, E], m, l [N, H, T]).  Heads
+    must need no padding.  CPU tensors take
+    :func:`train_attention_reference`; CUDA tensors launch the kernel or
+    raise."""
+    if qkv.device.type == "cpu":
+        return train_attention_reference(qkv, n_head)
+    n, t, e = _heads_nopad("train_attention", qkv, n_head)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {qkv.device}")
+    check_tensor("train_attention", "qkv", qkv, torch.bfloat16, (n, t, 3 * e), qkv.device)
+    att = torch.empty((n, t, e), dtype=torch.bfloat16, device=qkv.device)
+    m, l = (torch.empty((n, n_head, t), dtype=torch.float32, device=qkv.device)
+            for _ in range(2))
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        rc = lib.fused_train_attention_fwd(
+            qkv.data_ptr(), att.data_ptr(), m.data_ptr(), l.data_ptr(), n, t, e, n_head,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    _raise_on(lib, rc, "attention forward")
+    return att, m, l
+
+
+def train_attention_backward_reference(qkv: torch.Tensor, datt: torch.Tensor,
+                                       n_head: int) -> torch.Tensor:
+    """Plain version of the kernels' attention backward: bf16 q|k|v [N, T,
+    3E] and the attention's gradient datt [N, T, E] -> dq|dk|dv bf16 [N, T,
+    3E], as ``train_bwd_reference`` computes them (p fp32 from q|k|v, delta
+    the sum over the keys of dp * p)."""
+    p, q, k, v = _probs(qkv, n_head)
+    scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // n_head)
+    pb = p.to(torch.bfloat16)
+    da = _heads(datt, n_head)
+    dv = _mm(pb.transpose(-1, -2), da).to(torch.bfloat16)
+    dp = _mm(da, v.transpose(-1, -2))
+    ds = ((dp - (dp * p).sum(-1, keepdim=True)) * p * scale).to(torch.bfloat16)
+    dq = _mm(ds, k).to(torch.bfloat16)
+    dk = _mm(ds.transpose(-1, -2), q).to(torch.bfloat16)
+    return torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
+
+
+def train_attention_backward(qkv: torch.Tensor, datt: torch.Tensor, att: torch.Tensor,
+                             m: torch.Tensor, l: torch.Tensor, n_head: int, sides: int = 3,
+                             scratch: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernels' attention backward alone (as ``train_backward`` runs it):
+    bf16 q|k|v [N, T, 3E], datt and the forward's att [N, T, E], its
+    statistics m, l [N, H, T] (:func:`train_attention`) -> dq|dk|dv [N, T,
+    3E].  `sides` (the wgmma route): 1 the query side, 2 the key side (which
+    reads what the query side left in `scratch`), 3 both.  CPU tensors take
+    :func:`train_attention_backward_reference`; CUDA tensors launch the
+    kernels or raise."""
+    if qkv.device.type == "cpu":
+        return train_attention_backward_reference(qkv, datt, n_head)
+    n, t, e = _heads_nopad("train_attention_backward", qkv, n_head)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_train: no kernel for device {qkv.device}")
+    dev = qkv.device
+    check_tensor("train_attention_backward", "qkv", qkv, torch.bfloat16, (n, t, 3 * e), dev)
+    for name, ten in (("datt", datt), ("att", att)):
+        check_tensor("train_attention_backward", name, ten, torch.bfloat16, (n, t, e), dev)
+    for name, ten in (("m", m), ("l", l)):
+        check_tensor("train_attention_backward", name, ten, torch.float32, (n, n_head, t), dev)
+    lib = _library()
+    if scratch is None:
+        scratch = torch.empty(lib.fused_train_attention_scratch(n, t, e, n_head),
+                              dtype=torch.float32, device=dev)
+    dqkv = torch.empty((n, t, 3 * e), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fused_train_attention_bwd(
+            qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), m.data_ptr(), l.data_ptr(),
+            scratch.data_ptr(), dqkv.data_ptr(), n, t, e, n_head, sides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "attention backward")
+    return dqkv
 
 
 def gemm_tile(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_k: bool = False,

@@ -20,7 +20,10 @@ Builds two probe kernels (written out below, compiled with ``nvcc`` into
 - the SASS size of ``csrc/attn_wgmma.cuh``'s kernels in
   ``libattention`` and ``libfused_blocks`` (instructions, and the ``ex2``
   among them), which a tile runs once each;
-- (alone with ``--regs``) ptxas's registers and spills of
+- (alone with ``--regs``) ptxas's registers and spills of the training
+  attention's kernels in ``csrc/fused_train.cu`` (the wgmma forward
+  through TrainIo, ``csrc/attn_wgmma_bwd.cuh``'s two backward kernels and
+  the mma.sync ones) at each head width; and of
   ``csrc/attn_wgmma.cuh``'s kernel compiled at head dims 64 (as the
   library builds it) and 80, 96, 112 and 128, both arithmetics, bf16.
   Those four are instantiated for this count only, with stand-in
@@ -258,16 +261,51 @@ def wide_registers() -> None:
               f"registers, {local.value} bytes local memory a thread", flush=True)
 
 
+TRAIN_KERNELS = ("attn_wgmma_kernel", "attn_bwd_q_wgmma", "attn_bwd_kv_wgmma",
+                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel")
+
+
+def train_registers() -> None:
+    """Compile csrc/fused_train.cu as ops/_build.py does (ptxas -v) and
+    print the registers and spills of its attention kernels: the wgmma
+    forward through TrainIo, attn_bwd_q_wgmma and attn_bwd_kv_wgmma
+    (csrc/attn_wgmma_bwd.cuh) and the mma.sync backward, at each head
+    width.  ptxas reports a warp-specialised kernel's registers at launch
+    (168 under 384 threads a block); the spills are those of its regions
+    under the counts setmaxnreg sets (the consumers' and the producer's)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "libfused_train-regs.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(_build.CSRC / "fused_train.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on fused_train.cu:\n{proc.stdout}{proc.stderr}")
+    for entry in re.split(r"Compiling entry function '", proc.stdout + proc.stderr)[1:]:
+        name = entry.split("'")[0]
+        kernel = next((k for k in TRAIN_KERNELS if k in name), None)
+        if kernel is None:
+            continue
+        d = int(re.search(r"ILi(\d+)E", name)[1])
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                           r"spill loads", entry)
+        used = re.search(r"Used (\d+) registers", entry)
+        print(f"[probe] fused_train {kernel} D={d}: ptxas {used[1]} registers, {spills[1]} "
+              f"bytes stack frame, {spills[2]} bytes spill stores, {spills[3]} bytes spill "
+              f"loads", flush=True)
+    out.unlink(missing_ok=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--regs", action="store_true",
-                        help="only the registers and spills of the kernel at D = 64 and 80-128")
+                        help="only the registers and spills of the kernel at D = 64 and 80-128, "
+                             "and of the training attention's kernels")
     args = parser.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"[probe] {smi}")
     if args.regs:
         wide_registers()
+        train_registers()
         return
     dev = torch.device("cuda", 0)
     path = build_probe()

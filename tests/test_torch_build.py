@@ -61,18 +61,20 @@ def test_library_is_keyed_by_included_headers(csrc):
 
 def test_kernel_sources_name_the_shared_attention_header():
     """attention.cu, fused_train.cu, fused_gpt.cu and fused_blocks.cu share
-    csrc/attn_tile.cuh; attention.cu and fused_blocks.cu also share
-    csrc/attn_wgmma.cuh, which reaches csrc/wgmma.cuh through
-    csrc/gemm_tile.cuh, as the layer kernels do; fused_gpt.cu includes
-    csrc/wgmma.cuh; each library's key follows the headers its source
-    includes."""
+    csrc/attn_tile.cuh; attention.cu, fused_blocks.cu and fused_train.cu
+    also share csrc/attn_wgmma.cuh, which reaches csrc/wgmma.cuh through
+    csrc/gemm_tile.cuh, as the layer kernels do; fused_train.cu includes
+    the training attention's backward, csrc/attn_wgmma_bwd.cuh; fused_gpt.cu
+    includes csrc/wgmma.cuh; each library's key follows the headers its
+    source includes."""
     for name in ("attention", "fused_blocks"):
         assert [p.name for p in _build.source_files(name)] == [
             f"{name}.cu", "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_gpt")] == [
         "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_train")] == [
-        "fused_train.cu", "attn_tile.cuh", "gemm_tile.cuh", "wgmma.cuh"]
+        "fused_train.cu", "attn_tile.cuh", "attn_wgmma.cuh", "attn_wgmma_bwd.cuh",
+        "gemm_tile.cuh", "wgmma.cuh"]
 
 
 def test_layer_kernels_share_the_hopper_gemm():
