@@ -95,24 +95,33 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    n_embd 200 at T = 300 (heads padded to 16 columns, T past 256), and
    head dim 128 at T = 300 (the attention backward's key and query windows
    reloaded in turn), and the repaired widths (n_embd 250 with 5 heads;
-   n_embd 1032 with 4 heads at T = 256 and 300) on a 2-layer forward and a
-   1-layer backward chunk each, the repaired ones timed at T = 256; a
-   second backward launch must equal the first bit for bit.
+   n_embd 1032 with 4 heads at T = 256 and 300), and n_embd 2304 with 18
+   heads at T = 64 (past the LN epilogue's 2048 columns: the separate LN
+   kernels) on a 2-layer forward and a 1-layer backward chunk each, the
+   repaired ones timed at T = 256; a second backward launch must equal the
+   first bit for bit, and the backward's epilogue kernels
+   (``csrc/train_bwd_gemm.cuh``, ``fused_gpt_train.bwd_gemm_launches``),
+   counted around the first, one MLP front a layer and group of 256
+   contexts and two LN epilogues where ``ln_route`` takes the width (each
+   compare names the route: one CTA a row, a cluster, or the kernels),
+   exactly.
 10. The trainer through its entry point: ``train.loop.train`` with
    ``--model 6M --device cuda``, batch 256, grad-accum 2, 20 iterations,
    eval every 10, on shards written here with ``write_arrow_shard``: the
    tokens the tokenizer makes on the reset instances stepped with the
    trained 6M's argmax actions, and those actions as targets.  The
    training kernels' counters, set to 0 just before, must read one forward
-   per micro-batch and four backward chunks per micro-batch; every loss
+   per micro-batch and four backward chunks per micro-batch, the wgmma
+   attention's and the backward epilogue kernels' counters theirs; every loss
    finite; the last logged loss below the first by ``LOSS_DROP``; the
    newest checkpoint loads with ``load_reference_checkpoint`` and drives
    one rollout step through the e2e kernel.
 11. Training timing: one forward + backward of the 6M at the reference
    micro-batch of 2048 contexts, the kernels alone and the whole
    ``fused_loss_fn`` + backward, beside the plain versions and the bound;
-   the backward's device time by kernel (``torch.profiler``); the
-   trainer's it/s and MFU.
+   the backward's device time by kernel (``torch.profiler``), its epilogue
+   kernels' launches counted around one call; the backward workspace's
+   bytes; the trainer's it/s and MFU.
 12. The attention kernel (``csrc/attention.cu``, for ``attn_impl="pallas"``)
    against its plain version ``attention_einsum``, fp32, bf16 and fp16, at
    [B, H, T, D] = [64, 5, 256, 32] (2M-like), [32, 8, 256, 32] (6M-like),
@@ -192,7 +201,8 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    ``load_reference_checkpoint`` and drives one rollout step through the
    layer-stack kernel.  Then iterations at the reference shape (512 x
    16): a first, untimed, with the counters set to 0 before it and read
-   after it (16 forward and 192 backward launches), and two timed, their
+   after it (16 forward and 192 backward launches; 384 MLP fronts and 768
+   LN epilogues), and two timed, their
    median giving it/s and MFU.  Last the kernels alone at the 512
    contexts a micro-batch the trainer gives them, 12 layers: the forward's
    out and saves against its plain version (``TRAIN_PLAIN_CHUNK``
@@ -226,12 +236,31 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    forward's logsumexp: yardsticks, never on the port's path).  The
    trainer phases (9, 10, 19) read the wgmma kernels' launch counters
    (``fused_gpt_train.wgmma_launches``) around their runs.
+22. The backward's epilogue kernels alone (run right after phase 21;
+   ``csrc/train_bwd_gemm.cuh``), at the shapes a backward call gives them
+   (``BWD_GEMM_SHAPES``: a group of 256 contexts at T = 256, the 6M's E =
+   256 and the 85M's 768): ``mlp_front_kernel``'s hact equal bit for bit to
+   ``gemm_tile``'s product of the same operands through the forward's GELU
+   epilogue (the two-GEMM route's K order), hact and dh each within one
+   bf16 step of its plain version elementwise (``check_bf16_step``);
+   ``ln_dx_kernel`` at both sites (dh Wfc^T and dqkv Wqkv^T; one CTA a row
+   at 256, a cluster of three at 768) against its plain version: the
+   update dx_out - dx_in within 1e-3 * max|ref| + 1e-5 (the dx carried in
+   left out of the scale, so that the mean terms count), dxb equal to
+   bf16(dx_out), dg within 1e-4 * max|ref| + 1e-6, a second call equal to
+   the first bit for bit; then each timed beside its bound and its plain
+   version, the MLP front beside two ``gemm_tile`` products of the same
+   operands (bf16 out: the old route's products without their fp32
+   stores), the LN epilogue beside ``gemm_tile``'s product alone.  Under a
+   second.
 
 Then an ``[expert data]`` line with phases 17-20's numbers, an
 ``[evaluator]`` line with phase 16's, the card's name and power limit, the
 kernels' JSON line (the training kernels' entries with their 85M numbers
-under ``"85M"``, the training attention's three wgmma kernels with theirs
-under ``"at_85m_shape"``) and, last, ``{"ok": true, "device": {...}}``.
+under ``"85M"``, the training attention's three wgmma kernels and the
+backward's two epilogue kernels with theirs under ``"at_85m_shape"``; the
+backward's entry keys its epilogue kernels' device time in the 6M split by
+``profiling.kernel_key``) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
 so it does without a GPU, and outside a checkout of the repository.
 """
@@ -317,7 +346,9 @@ TRAIN_WIDTHS = {"85M width": (768, 12, 256), "head dim 16": (256, 16, 256),   # 
                 # repaired: n_embd not a multiple of 8 (stored padded to 256), and a head
                 # dim past 128 (258: three slabs of 96 columns), at T = 256 and 300
                 "n_embd 250, 5 heads": (250, 5, 256), "n_embd 1032, 4 heads": (1032, 4, 256),
-                "n_embd 1032, 4 heads, T 300": (1032, 4, 300)}
+                "n_embd 1032, 4 heads, T 300": (1032, 4, 300),
+                # past the LN epilogue's 2048 columns: the separate LN kernels
+                "n_embd 2304, 18 heads, T 64": (2304, 18, 64)}
 # the layer-stack kernel past its old limits, (n_embd, heads, layers, T): the 85M's
 # width at T = 200, head dims 8 and 24 (padded to 16 and 32 columns), n_embd 336 with
 # 21 heads, and 256 heads of head dim 8, whose thin attention's H x T scores were
@@ -367,6 +398,9 @@ TRAIN_ATT_SHAPES = ((16, 5, 256, 32), (16, 8, 256, 32), (8, 12, 256, 64), (8, 8,
                     (64, 16, 130, 16))
 TRAIN_ATT_TIME = {"6M": (2048, 8, 256, 32), "85M": (512, 12, 256, 64)}
 TRAIN_ATT_PLAIN = 256            # contexts per plain-version call at the timing shapes
+# the backward's epilogue kernels alone at a group of 256 contexts x T = 256 rows,
+# (n_embd, 4 n_embd): the 6M's and the 85M's
+BWD_GEMM_SHAPES = {"6M": (65536, 256, 1024), "85M": (65536, 768, 3072)}
 ATT_PLAIN_PAIRS = 2560           # (batch, head) pairs per plain-version call
 # the evaluator phase: one-shot specs (map, agents, seeds) of EVAL_STEPS steps, and
 # lifelong specs on the warehouse map, K = EVAL_K queued goals
@@ -881,9 +915,20 @@ def compare_backward(label: str, xsave, dxin, stacks,
                      chunk: int | None = None) -> tuple[float, torch.Tensor]:
     """One backward chunk, kernel vs plain version (`chunk` contexts a
     plain call, all when None), and the kernel twice: the second launch
-    must equal the first bit for bit.  Returns (max |err|, the kernel's
+    must equal the first bit for bit; the backward's epilogue kernels
+    counted around the first, exactly.  Returns (max |err|, the kernel's
     dx)."""
+    n, _, e = dxin.shape
+    torch.cuda.synchronize()
+    fgt.reset_bwd_gemm_launches()
     got = fgt.train_backward(xsave, dxin, stacks)
+    torch.cuda.synchronize()
+    counts = fgt.bwd_gemm_launches()
+    want = fgt.bwd_gemm_launch_count(stacks.wqkv.shape[0], n, e)
+    log(f"[compare] {label}: LayerNorm backward route {ln_route(e)}; epilogue kernel launches "
+        f"{counts}")
+    if counts != want:
+        raise RuntimeError(f"{label}: backward epilogue kernel launches {counts}, expected {want}")
     again = fgt.train_backward(xsave, dxin, stacks)
     torch.cuda.synchronize()
     ref = plain_backward_chunks(xsave, dxin, stacks, chunk or dxin.shape[0])
@@ -893,6 +938,18 @@ def compare_backward(label: str, xsave, dxin, stacks,
         raise RuntimeError(f"{label}: a second backward launch differs from the first")
     log(f"[compare] {label}: a second launch equals the first bit for bit")
     return err, got[0]
+
+
+def ln_route(e: int) -> str:
+    """The backward's LayerNorm route for n_embd e as csrc/fused_train.cu
+    picks it (the library's cluster ranks), held equal to
+    fused_gpt_train.ln_route (its mirror on the CPU)."""
+    ranks = fgt._library().fused_train_ln_route(fused_blocks.stored_width(e))
+    route = fgt.LN_ROUTES[2 if ranks == 0 else 0 if ranks == 1 else 1]
+    if route != fgt.ln_route(e) or (ranks and ranks != fgt.ln_cluster_ranks(e)):
+        raise RuntimeError(f"n_embd {e}: the library's LayerNorm route ({ranks} ranks) is not "
+                           f"{fgt.ln_route(e)} ({fgt.ln_cluster_ranks(e)})")
+    return route if ranks <= 1 else f"cluster of {ranks}"
 
 
 def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
@@ -1010,12 +1067,14 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
         fgt.fwd_launches = fgt.bwd_launches = 0
         fused_gpt.launches = fused_blocks.launches = 0
         fgt.reset_wgmma_launches()
+        fgt.reset_bwd_gemm_launches()
         t0 = time.perf_counter()
         result = train_loop.train(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = (fgt.fwd_launches, fgt.bwd_launches)
         att_launches = fgt.wgmma_launches()
+        epi_launches = fgt.bwd_gemm_launches()
         micro = TRAIN_ITERS * TRAIN_ACCUM
         bwd_per_micro = -(-CONFIGS["6M"].n_layer // fgt._bwd_layers_per_call(CONFIGS["6M"]))
         log(f"[trainer] 6M {TRAIN_ITERS} iterations x {TRAIN_ACCUM} micro-batches of "
@@ -1025,6 +1084,7 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
             raise RuntimeError(f"trainer: training kernel launches {launches}, expected "
                                f"{(micro, micro * bwd_per_micro)}")
         check_wgmma_launches("trainer 6M", att_launches, CONFIGS["6M"], micro, TRAIN_BATCH)
+        check_bwd_gemm_launches("trainer 6M", epi_launches, CONFIGS["6M"], micro, TRAIN_BATCH)
         losses = [h["loss"] for h in result["history"]]
         evals = [(e["val_loss"], e["val_acc"]) for e in result["evals"]]
         log(f"[trainer] losses {losses}; evals (val_loss, val_acc) {evals}")
@@ -1046,7 +1106,8 @@ def trainer_phase(teacher, seed: int, dev) -> dict:
         rollout(f"6M trained here (iter {step})", spec, load_model(cfg, sd, device=dev), states,
                 B, 1, e2e=1, blocks=0)
     return {"launches": launches, "it_per_s": its, "mfu": mfu,
-            "losses": losses, "wall_s": wall, "wgmma_launches": att_launches}
+            "losses": losses, "wall_s": wall, "wgmma_launches": att_launches,
+            "bwd_gemm_launches": epi_launches}
 
 
 def check_wgmma_launches(label: str, got: dict, cfg, micro: int, batch: int) -> None:
@@ -1059,6 +1120,18 @@ def check_wgmma_launches(label: str, got: dict, cfg, micro: int, batch: int) -> 
     log(f"[trainer] {label}: training attention route {route}; wgmma kernel launches {got}")
     if route != "wgmma" or got != want:
         raise RuntimeError(f"{label}: wgmma attention launches {got}, expected {want}")
+
+
+def check_bwd_gemm_launches(label: str, got: dict, cfg, micro: int, batch: int) -> None:
+    """The backward's epilogue kernels, counted over `micro` micro-batches
+    of `batch` contexts of cfg's trainer: an MLP front a layer and group of
+    contexts, two LN epilogues where the width takes them."""
+    per = fgt.bwd_gemm_launch_count(cfg.n_layer, batch, cfg.n_embd)
+    want = {k: micro * v for k, v in per.items()}
+    log(f"[trainer] {label}: LayerNorm backward route {ln_route(cfg.n_embd)}; backward epilogue "
+        f"kernel launches {got}")
+    if got != want or min(got.values()) == 0:
+        raise RuntimeError(f"{label}: backward epilogue kernel launches {got}, expected {want}")
 
 
 def train_ops(t: int, e: int, h: int, layers: int, last_only: bool, backward: bool
@@ -1148,10 +1221,17 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
 
     fwd_ms = cuda_ms(forward, reps=3)
     bwd_ms = cuda_ms(backward, reps=3)
+    torch.cuda.synchronize()
+    fgt.reset_bwd_gemm_launches()
+    backward()
+    torch.cuda.synchronize()
+    check_bwd_gemm_launches(f"6M backward at N={N_TRAIN_TIME}", fgt.bwd_gemm_launches(), cfg, 1,
+                            N_TRAIN_TIME)
     lib = fgt._library()
+    workspace = {label: lib.fused_train_workspace(1, fgt.GROUP, 256, e_, h_)
+                 for label, (e_, h_) in (("6M", (256, 8)), ("85M", (768, 12)))}
     log("[timing] backward workspace for groups of 256 contexts: " + ", ".join(
-        f"{label} {lib.fused_train_workspace(1, fgt.GROUP, 256, e_, h_)} bytes"
-        for label, (e_, h_) in (("6M", (256, 8)), ("85M", (768, 12)))))
+        f"{label} {b} bytes" for label, b in workspace.items()))
     split = log_split(f"6M train N={N_TRAIN_TIME} backward", backward)   # warmed up above
     whole_ms = cuda_ms(whole, reps=3)
     plain_fwd_ms = cuda_ms(plain_forward, reps=1)
@@ -1175,9 +1255,11 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
          "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:133",
          "launches": trainer["launches"][1], "max_abs_err": bwd_err, "ms": bwd_ms,
          "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "calls": len(chunks),
+         "calls": len(chunks), "workspace_bytes": workspace,
          "attention_kernels_ms": {profiling.kernel_key(name): ms_k
-                                  for ms_k, _, name in split if "attn" in name}},
+                                  for ms_k, _, name in split if "attn" in name},
+         "bwd_gemm_kernels_ms": {profiling.kernel_key(name): ms_k for ms_k, _, name in split
+                                 if profiling.kernel_key(name) in fgt.BWD_GEMM_KERNELS}},
     ]
 
 
@@ -1584,6 +1666,144 @@ def train_attention_entries(phase: dict, launches: dict) -> list[dict]:
     return out
 
 
+def check_bf16_step(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """bf16 got vs bf16 ref, each the rounding of an fp32 value that differs
+    only by the order of a product's sum: every element within one bf16
+    step of ref (|got - ref| <= 2^-7 |ref|, plus 1e-5 * max|ref| where a
+    value is near 0).  Returns max |got - ref|."""
+    if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name}: kernel output {tuple(got.shape)} not finite or "
+                           f"not of shape {tuple(ref.shape)}")
+    diff = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    bad = (diff > ref.float().abs() * 2.0 ** -7 + 1e-5 * scale).sum().item()
+    err = diff.max().item()
+    log(f"[compare] {name}: n={got.numel()} max|err|={err:.6f} (max|ref|={scale:.3f}); "
+        f"{bad} elements more than one bf16 step from the plain version")
+    if bad:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return err
+
+
+def bwd_gemm_phase(seed: int, dev) -> dict:
+    """22. The backward's epilogue kernels alone at BWD_GEMM_SHAPES: the MLP
+    front's hact against gemm_tile's GELU epilogue bit for bit, hact and dh
+    within a bf16 step of the plain version, the LN epilogue at both sites
+    against its plain version (the update, dxb, dg; twice, bit for bit),
+    then each timed beside its bound, its plain version and the gemm_tile
+    products of the same operands.  Returns the timings and each kernel's
+    largest error."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    errs = {"mlp_front_kernel": 0.0, "ln_dx_kernel": 0.0}
+    rows = {}
+    for label, (m, e, f) in BWD_GEMM_SHAPES.items():
+        row = {"shape": [m, e, f]}
+        # the MLP front: xn2, dxb [M, E], Wfc [E, F], Wfc2 [F, E]
+        xn2, dxb = rand(m, e), rand(m, e, scale=0.1)
+        wfc, wfc2 = rand(e, f, scale=0.05), rand(f, e, scale=0.05)
+        hact, dh = fgt.mlp_front(xn2, wfc, dxb, wfc2)
+        g_h = fgt.gemm_tile(xn2, wfc, gelu=True)
+        torch.cuda.synchronize()
+        ref_h, ref_d = fgt.mlp_front_reference(xn2, wfc, dxb, wfc2)
+        name = f"MLP front {label} [{m}, {e}, {f}]"
+        if not torch.equal(hact, g_h):
+            raise RuntimeError(f"{name}: hact differs from gemm_tile's GELU epilogue on the same "
+                               f"operands (max diff {(hact.float() - g_h.float()).abs().max()})")
+        log(f"[compare] {name}: hact equals gemm_tile's product of the same operands through the "
+            f"forward's GELU epilogue bit for bit")
+        errs["mlp_front_kernel"] = max(errs["mlp_front_kernel"],
+                                       check_bf16_step(f"{name} hact", hact, ref_h),
+                                       check_bf16_step(f"{name} dh", dh, ref_d))
+        del g_h, ref_h, ref_d
+        ms_front = cuda_ms(lambda: fgt.mlp_front(xn2, wfc, dxb, wfc2), reps=10)
+        ms_two = cuda_ms(lambda: (fgt.gemm_tile(xn2, wfc), fgt.gemm_tile(dxb, wfc2, b_k=True)),
+                         reps=10)
+        ms_plain = cuda_ms(lambda: fgt.mlp_front_reference(xn2, wfc, dxb, wfc2), reps=1)
+        # operations: the two products (an exp2 a hidden value); bytes: each input once,
+        # hact and dh written
+        b_front = bound(4 * m * e * f, m * f, nbytes(xn2, dxb, wfc, wfc2) + 2 * m * f * 2)
+        row["mlp_front_kernel"] = {
+            "ms": ms_front, "plain_ms": ms_plain, "bound_ms": b_front[0], "bound_by": b_front[1],
+            "two_gemm_tile_ms": ms_two, "hact_bit_equal_to_gemm_tile_gelu": True}
+        log(f"[timing] MLP front {label} [{m}, {e}, {f}]: {ms_front:.4f} ms, bound "
+            f"{b_front[0]:.4f} ms ({b_front[1]}, {100 * b_front[0] / ms_front:.2f} % of bound); "
+            f"two gemm_tile products of the same operands (bf16 out) {ms_two:.4f} ms; plain "
+            f"{ms_plain:.3f} ms")
+        del xn2, dxb, hact, dh
+        # the LN epilogue at its two sites: dh Wfc^T (K = F) and dqkv Wqkv^T (K = 3E)
+        for site, k, w in (("LN2 (dh Wfc^T)", f, wfc),
+                           ("LN1 (dqkv Wqkv^T)", 3 * e, rand(e, 3 * e, scale=0.05))):
+            a = rand(m, k, scale=0.1)
+            x = rand(m, e, scale=0.5)
+            g = 1.0 + 0.1 * torch.randn(e, generator=gen, device=dev)
+            dx = torch.randn((m, e), generator=gen, device=dev) * 0.1
+            mu = x.float().mean(-1)
+            rstd = torch.rsqrt((x.float() - mu[:, None]).square().mean(-1) + 1e-5)
+            got = fgt.ln_backward_dx(a, w, x, g, dx.clone(), mu, rstd, e)
+            again = fgt.ln_backward_dx(a, w, x, g, dx.clone(), mu, rstd, e)
+            torch.cuda.synchronize()
+            if not all(torch.equal(p_, q_) for p_, q_ in zip(got, again)):
+                raise RuntimeError(f"LN epilogue {label} {site}: a second call differs")
+            ref = fgt.ln_backward_dx_reference(a, w, x, g, dx, mu, rstd, e)
+            name = f"LN epilogue {label} {site} [{m}, {e}, {k}] ({ln_route(e)})"
+            # the update itself: dx carried in would swell max|ref| past the mean terms
+            errs["ln_dx_kernel"] = max(
+                errs["ln_dx_kernel"],
+                check_close(f"{name} dx update", got[0] - dx, ref[0] - dx, floor=1e-5,
+                            argmax=False, rel=1e-3),
+                check_close(f"{name} dg", got[2], ref[2], floor=1e-6, argmax=False, rel=1e-4))
+            if not torch.equal(got[1], got[0].to(torch.bfloat16)):
+                raise RuntimeError(f"{name}: dxb is not bf16(dx)")
+            log(f"[compare] {name}: dxb equals bf16(dx); a second call equals the first bit "
+                f"for bit")
+            del got, again, ref
+            # dx updated in place, as the backward does (its values drift; its time does not)
+            ms_ln = cuda_ms(lambda: fgt.ln_backward_dx(a, w, x, g, dx, mu, rstd, e), reps=10)
+            ms_mm = cuda_ms(lambda: fgt.gemm_tile(a, w, b_k=True), reps=10)
+            ms_plain = cuda_ms(lambda: fgt.ln_backward_dx_reference(a, w, x, g, dx, mu, rstd, e),
+                               reps=1)
+            # bytes: A, W, x, g, mu and rstd read once, dx read and written, dxb and dg written
+            b_ln = bound(2 * m * e * k, 0, nbytes(a, w, x, g, mu, rstd) + 2 * nbytes(dx)
+                         + m * e * 2 + e * 4)
+            row[f"ln_dx_kernel {site.split()[0]}"] = {
+                "ms": ms_ln, "plain_ms": ms_plain, "bound_ms": b_ln[0], "bound_by": b_ln[1],
+                "gemm_tile_ms": ms_mm}
+            log(f"[timing] {name}: {ms_ln:.4f} ms, bound {b_ln[0]:.4f} ms ({b_ln[1]}, "
+                f"{100 * b_ln[0] / ms_ln:.2f} % of bound); gemm_tile's product alone (bf16 out) "
+                f"{ms_mm:.4f} ms; plain {ms_plain:.3f} ms")
+            del a, x, dx
+        rows[label] = row
+    seconds = time.perf_counter() - t0
+    log(f"[done] backward epilogue kernels phase {seconds:.1f} s")
+    return {"rows": rows, "err": errs, "seconds": seconds}
+
+
+def bwd_gemm_entries(phase: dict, launches: dict) -> list[dict]:
+    """The kernels JSON line's entries of the backward's epilogue kernels:
+    the 6M shape's numbers (the LN epilogue's at its LN2 site), the 85M's
+    beside them, `launches` from the 6M trainer's run (phase 10)."""
+    out = []
+    for name, key in (("mlp_front_kernel", "mlp_front_kernel"),
+                      ("ln_dx_kernel", "ln_dx_kernel LN2")):
+        def row(r):
+            return {**r[key], "shape": r["shape"]}
+        out.append({"name": name, "model": "6M trainer (backward epilogues)", "route": "cuda",
+                    "source": "mapf_gpt_tpu_torch/csrc/train_bwd_gemm.cuh",
+                    "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:133",
+                    "launches": launches[name], "max_abs_err": phase["err"][name],
+                    "library_ms": None, **row(phase["rows"]["6M"]),
+                    "at_85m_shape": row(phase["rows"]["85M"])})
+        if name == "ln_dx_kernel":
+            out[-1]["ln1_site"] = {k_: phase["rows"][k_]["ln_dx_kernel LN1"]
+                                   for k_ in phase["rows"]}
+    return out
+
+
 def check_rows(label: str, rows: list, steps: int, lifelong: bool) -> None:
     """The evaluator's rows against the metrics' invariants."""
     for r in rows:
@@ -1918,12 +2138,14 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     fgt.fwd_launches = fgt.bwd_launches = 0
+    fgt.reset_bwd_gemm_launches()
     t0 = time.perf_counter()
     result = train_loop.train(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = (fgt.fwd_launches, fgt.bwd_launches)
+    check_bwd_gemm_launches("trainer 85M", fgt.bwd_gemm_launches(), cfg, iters * accum, batch)
     micro = iters * accum
     bwd_per_micro = -(-cfg.n_layer // fgt._bwd_layers_per_call(cfg))
     log(f"[trainer 85M] {iters} iterations x {accum} micro-batches of {batch}: {wall:.2f} s, "
@@ -1962,12 +2184,16 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     torch.cuda.synchronize()
     fgt.fwd_launches = fgt.bwd_launches = 0
     fgt.reset_wgmma_launches()
+    fgt.reset_bwd_gemm_launches()
     losses_ref = [step_fn(x, y).item()]
     torch.cuda.synchronize()
     ref_launches = (fgt.fwd_launches, fgt.bwd_launches)
     ref_att_launches = fgt.wgmma_launches()
+    ref_epi_launches = fgt.bwd_gemm_launches()
     check_wgmma_launches("trainer 85M, reference iteration", ref_att_launches, cfg,
                          REF_ACCUM_85M, batch)
+    check_bwd_gemm_launches("trainer 85M, reference iteration", ref_epi_launches, cfg,
+                            REF_ACCUM_85M, batch)
     if ref_launches != (REF_ACCUM_85M, REF_ACCUM_85M * bwd_per_micro):
         raise RuntimeError(f"trainer 85M: {ref_launches} training kernel launches in an iteration "
                            f"at {batch} x {REF_ACCUM_85M}, expected "
@@ -2026,7 +2252,7 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     return {"launches": launches, "losses": losses, "evals": evals, "wall_s": wall,
             "peak_memory_bytes": peak, "memory_estimate_bytes": MEM_85M_ESTIMATE,
             "ref_iteration_s": iter_times, "ref_it_per_s": 1 / iter_s, "ref_mfu": mfu,
-            "ref_wgmma_launches": ref_att_launches,
+            "ref_wgmma_launches": ref_att_launches, "ref_bwd_gemm_launches": ref_epi_launches,
             "fwd": {"n_contexts": batch, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
                     "bound_ms": fwd_bound, "bound_by": fwd_by, "max_abs_err": fwd_err,
                     "launches_per_iteration": launches[0] // iters,
@@ -2127,8 +2353,9 @@ def main() -> int:
     # 12. the attention kernel against its plain version, first; 2b. the layer kernels' GEMM
     att_err = attention_phase(args.seed, dev)
     gemm_rows = gemm_phase(args.seed, dev)
-    # 21. the training attention's wgmma kernels alone
+    # 21. the training attention's wgmma kernels alone; 22. the backward's epilogue kernels
     train_att = train_attention_phase(args.seed, dev)
+    bwd_gemm = bwd_gemm_phase(args.seed, dev)
 
     # 3-5. the trained 2M at full width; 6. the trained 6M; 7. the 85M
     cfg, sd = load_reference_checkpoint(CKPT)
@@ -2151,6 +2378,7 @@ def main() -> int:
                             trainer)
     entries[-1]["gemm_yardstick"] = gemm_rows["6M backward dh Wfc^T"]
     entries += train_attention_entries(train_att, trainer["wgmma_launches"])
+    entries += bwd_gemm_entries(bwd_gemm, trainer["bwd_gemm_launches"])
     log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
 
     # 13. the module route with attn_impl="pallas"; 14. the bias=True rollout; 15. timing

@@ -17,8 +17,8 @@
 //   the last position, so the last layer's MLP runs for that row alone.
 //   backward  (layers in reverse; dx fp32 inside the chunk, bf16 at its ends)
 //             MLP: recompute xn2, hmid = xn2 @ Wfc (fp32), hact = bf16(gelu(hmid));
-//                  dxb = bf16(dx);  dWfc2 += hact^T dxb;
-//                  dh = bf16((dxb Wfc2^T) * gelu_tanh'(hmid));  dWfc += xn2^T dh;
+//                  dxb = bf16(dx);  dh = bf16((dxb Wfc2^T) * gelu_tanh'(hmid));
+//                  dWfc2 += hact^T dxb;  dWfc += xn2^T dh;
 //                  dx += LN_bwd(dh Wfc^T);  dg2 += sum_rows(dy * xhat)
 //             attention: recompute xn1, q|k|v, att;  dxb = bf16(dx);
 //                  dWproj += att^T dxb;  datt = bf16(dxb Wproj^T);
@@ -49,16 +49,31 @@
 //     warpgroups, each operand read as it lies (dX = dY W^T reads W
 //     K-major, dW = A^T dY reads A and dY MN-major), tails zero-filled by
 //     TMA.  Epilogues on the accumulators: bf16 round, tanh GELU, residual
-//     add, fp32 store, fp32 + GELU (the backward's hmid and hact), and the
-//     GELU gradient;
+//     add, fp32 store;
+//   * the backward's MLP front is one kernel of two products on that
+//     machinery (csrc/train_bwd_gemm.cuh's mlp_front_kernel): hmid = xn2 Wfc
+//     and dhact = dxb Wfc2^T accumulate side by side over the same K from a
+//     ring of four-tile stages, and the epilogue writes hact = bf16(gelu(hmid))
+//     and dh = bf16(dhact gelu'(hmid)), so hmid never reaches device memory;
+//   * the LayerNorm backward runs in the epilogue of its dX product
+//     (ln_dx_kernel, same header): dY = dh Wfc^T (LN2) or dqkv Wqkv^T (LN1)
+//     stays in registers, each row's sums of dY g and dY g xhat are taken
+//     in the quad that holds the row, dx += LN_bwd(dY) in fp32, dxb =
+//     bf16(dx), and each 128-row tile leaves one gain-gradient partial row;
+//     the recompute's ln_kernel keeps the rows' mean and 1/std for it.  At
+//     E <= 256 a CTA owns whole rows; up to E = 2048 a row's 256-column
+//     tiles run as one thread-block cluster that adds the ranks' row sums
+//     in rank order through distributed shared memory (tbg::ln_ranks, the
+//     one place of that rule); past it the product goes to an fp32 dY and
+//     ln_bwd_kernel (a warp per row) and dg_partial_kernel (column sums
+//     over fixed row blocks) run after it;
 //   * the weight gradients: dW = A^T dY over the group's rows, split along
 //     the rows (the product's depth) into per-split partial sums in the
 //     workspace, enough splits to fill the card, then reduce_add_kernel
 //     adds the partials to the fp32 gradient in a fixed order.  No atomics,
 //     so two runs give the same gradients bit for bit;
-//   * ln_kernel (LN forward), ln_bwd_kernel (a warp per row: dx += LN
-//     backward, dxb = bf16(dx)) and dg_partial_kernel (the gain gradient,
-//     column sums over fixed row blocks, reduced like the weights');
+//   * ln_kernel (LN forward, a warp per row); the gain gradients' partials
+//     reduced like the weights';
 //   * the attention, routed by shape (attention_route, the one place of
 //     that rule): at T <= 256 and padded head widths 16, 32, 48 and 64 (the
 //     models' heads), the forward and the backward's recompute run
@@ -102,6 +117,7 @@
 #include "attn_wgmma.cuh"
 #include "attn_wgmma_bwd.cuh"
 #include "gemm_tile.cuh"
+#include "train_bwd_gemm.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -113,29 +129,9 @@ constexpr int MAX_SPLITS = 64;
 constexpr int ROWS_PER_PART = 256;       // rows of one gain-gradient partial
 constexpr size_t BWD_BUDGET = 180 * 1024;   // shared memory of a backward attention CTA
 
-constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
-constexpr float GELU_C = 0.044715f;
+using tbg::gelu_tanh;   // the tanh GELU of csrc/train_bwd_gemm.cuh, shared with its MLP front
 
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-// tanh-approximated GELU and its derivative, with tanh(u) = 2 s - 1, s =
-// sigmoid(2u) = 1 / (1 + 2^(-2u log2(e))): one ex2.approx and a fast
-// division (as csrc/fused_gpt.cu), within a few fp32 ulp of the accurate
-// tanh's.  gelu = h s; gelu' = 0.5 (1 + t) + 0.5 h (1 - t^2) du = s + 2 h
-// du s (1 - s).  For u below about -44 the power is inf and s = 0.
-__device__ __forceinline__ float sigmoid2(float u) {
-  return __fdividef(1.f, 1.f + attn::ex2(-2.f * attn::LOG2E * u));
-}
-
-__device__ __forceinline__ float gelu_tanh(float h) {
-  return h * sigmoid2(SQRT_2_OVER_PI * (h + GELU_C * h * h * h));
-}
-
-__device__ __forceinline__ float gelu_tanh_grad(float h) {
-  const float s = sigmoid2(SQRT_2_OVER_PI * (h + GELU_C * h * h * h));
-  const float du = SQRT_2_OVER_PI * (1.f + 3.f * GELU_C * h * h);
-  return s + 2.f * h * du * s * (1.f - s);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -185,21 +181,6 @@ struct EpiResid {
   }
 };
 
-// C16 = bf16(acc * gelu_tanh'(X32))  (X32's rows ldc apart)
-struct EpiGeluGrad {
-  using Side = float2;
-  static constexpr bool STAGED = true;
-  bf16* c;
-  int ldc;
-  const float* x32;
-  __device__ Side load(int r, int col) const {
-    return *reinterpret_cast<const float2*>(x32 + (size_t)r * ldc + col);
-  }
-  __device__ float2 value(int, int, float v0, float v1, Side h) const {
-    return {v0 * gelu_tanh_grad(h.x), v1 * gelu_tanh_grad(h.y)};
-  }
-};
-
 // C32 = acc, split z's partial at C32 + z * split_stride
 struct EpiF32 {
   using Side = gemm::NoSide;
@@ -213,30 +194,15 @@ struct EpiF32 {
   }
 };
 
-// C32 = acc, C16 = bf16(gelu_tanh(acc)): C16 staged, C32 (rows x cols)
-// stored from registers as each pair is formed
-struct EpiF32Gelu {
-  using Side = gemm::NoSide;
-  static constexpr bool STAGED = true;
-  bf16* c;
-  int ldc;
-  float* c32;
-  int rows, cols;
-  __device__ Side load(int, int) const { return {}; }
-  __device__ float2 value(int r, int col, float v0, float v1, Side) const {
-    if (r < rows && col < cols)
-      *reinterpret_cast<float2*>(c32 + (size_t)r * ldc + col) = make_float2(v0, v1);
-    return {gelu_tanh(v0), gelu_tanh(v1)};
-  }
-};
-
 // y[r] = bf16(LN(x[r]) * g) for M rows, a warp per row (rows ldx and ldy
 // apart): the statistics over the first EL of the E stored columns (the rest
 // are the zero padding of an n_embd that is not a multiple of 8; g is zero
-// there, so y is too).
+// there, so y is too).  The backward's recompute also keeps each row's mean
+// and 1/std in mu_out, rs_out (null in the forward) for its LN epilogue.
 __global__ void __launch_bounds__(256)
 ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g,
-          bf16* __restrict__ y, int ldy, int M, int E, int EL) {
+          bf16* __restrict__ y, int ldy, int M, int E, int EL, float* __restrict__ mu_out,
+          float* __restrict__ rs_out) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * ldx;
@@ -252,30 +218,28 @@ ln_kernel(const bf16* __restrict__ x, long long ldx, const float* __restrict__ g
   bf16* yr = y + (size_t)row * ldy;
   for (int c = lane; c < E; c += 32)
     yr[c] = __float2bfloat16((__bfloat162float(xr[c]) - mu) * rstd * g[c]);
+  if (mu_out != nullptr && lane == 0) {
+    mu_out[row] = mu;
+    rs_out[row] = rstd;
+  }
 }
 
-// LayerNorm backward of y = LN(x) * g for M rows [E], a warp per row:
+// LayerNorm backward of y = LN(x) * g for M rows [E], a warp per row, at the
+// widths past the LN epilogue's (tbg::ln_ranks(E) == 0), from the rows' mean
+// and 1/std as the recompute's ln_kernel left them in mu, rs:
 // dx += (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat)) * rstd, then dxb =
-// bf16(dx); the rows' mean and 1/std go to mu, rs for dg_partial_kernel.
-// The means over the first EL columns; the padding columns past EL keep dx
-// (zero) and get dxb = 0.
+// bf16(dx).  The means over the first EL columns; the padding columns past
+// EL keep dx (zero) and get dxb = 0.
 __global__ void __launch_bounds__(256)
 ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
               const float* __restrict__ dy, float* __restrict__ dx, bf16* __restrict__ dxb,
-              float* __restrict__ mu_out, float* __restrict__ rs_out, int M, int E, int EL) {
+              const float* __restrict__ mu_in, const float* __restrict__ rs_in, int M, int E,
+              int EL) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * E;
   const float* dyr = dy + (size_t)row * E;
-  float s = 0.f;
-  for (int c = lane; c < EL; c += 32) s += __bfloat162float(xr[c]);
-  const float mu = warp_sum(s) / EL;
-  float q = 0.f;
-  for (int c = lane; c < EL; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mu;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(q) / EL + LN_EPS);
+  const float mu = mu_in[row], rstd = rs_in[row];
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < EL; c += 32) {
     const float xhat = (__bfloat162float(xr[c]) - mu) * rstd;
@@ -292,10 +256,6 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
     const float v = c < EL ? dxr[c] + (d - m1 - xhat * m2) * rstd : dxr[c];
     dxr[c] = v;
     dxbr[c] = __float2bfloat16(v);
-  }
-  if (lane == 0) {
-    mu_out[row] = mu;
-    rs_out[row] = rstd;
   }
 }
 
@@ -840,9 +800,49 @@ cudaError_t gain_grad(const bf16* x, const float* dy, const float* mu, const flo
 }
 
 cudaError_t layer_norm(const bf16* x, long long ldx, const float* g, bf16* y, int ldy, int M,
-                       int E, int EL, cudaStream_t stream) {
-  ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, ldy, M, E, EL);
+                       int E, int EL, cudaStream_t stream, float* mu = nullptr,
+                       float* rs = nullptr) {
+  ln_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, ldx, g, y, ldy, M, E, EL, mu, rs);
   return cudaGetLastError();
+}
+
+// Launches of the backward's epilogue kernels (mlp_front_kernel,
+// ln_dx_kernel), counted where they are launched.
+long long bwd_gemm_launches[2] = {0, 0};
+
+// hact, dh [M, F] from xn2, dxb [M, E] and the layer's Wfc, Wfc2:
+// mlp_front_kernel.
+cudaError_t mlp_front(const bf16* xn2, const bf16* dxb, const bf16* wfc, const bf16* wfc2,
+                      bf16* hact, bf16* dh, int M, int E, int F, cudaStream_t stream) {
+  const cudaError_t err = tbg::mlp_front(xn2, dxb, wfc, wfc2, hact, dh, M, E, F, stream);
+  if (err == cudaSuccess) ++bwd_gemm_launches[0];
+  return err;
+}
+
+// dx += LN_bwd(A W^T) for y = LN(x) * g (A [M, K], W [E, K]; the rows' mu
+// and rs as ln_kernel left them), dxb = bf16(dx), dg += the gain gradient
+// (partial: the row blocks' sums, reduced in order).  At the widths
+// tbg::ln_ranks takes, one ln_dx_kernel (the product, the LN backward and
+// the gain partials in its epilogue); past them the product into dy32
+// (fp32 [M, E]), then ln_bwd_kernel and dg_partial_kernel.
+cudaError_t ln_backward(const bf16* A, const bf16* W, int K, const bf16* x, const float* g,
+                        const float* mu, const float* rs, float* dx, bf16* dxb, float* dy32,
+                        float* partial, float* dg, int M, int E, int EL, cudaStream_t stream) {
+  if (tbg::ln_ranks(E) > 0) {
+    cudaError_t err =
+        tbg::ln_dx(A, W, M, E, K, tbg::LnArgs{x, E, g, mu, rs, dx, dxb, partial, EL}, stream);
+    if (err != cudaSuccess) return err;
+    ++bwd_gemm_launches[1];
+    reduce_add_kernel<<<(E + 255) / 256, 256, 0, stream>>>(partial, gemm::cdiv(M, gemm::BM), E,
+                                                           dg);
+    return cudaGetLastError();
+  }
+  cudaError_t err = gemm::run<false, true>(A, K, W, K, M, E, K, EpiF32{dy32, E, 0}, stream);
+  if (err != cudaSuccess) return err;
+  ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(x, g, dy32, dx, dxb, mu, rs, M, E, EL);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gain_grad(x, dy32, mu, rs, M, E, partial, dg, stream);
 }
 
 // 1/sqrt(dh) in double, rounded once to fp32, as the JAX kernels' python scale
@@ -1045,7 +1045,7 @@ size_t bwd_scratch(int nc, int T, Heads hd) {
 }
 
 struct BwdBufs {
-  float *dx, *hmid, *dxn, *mu, *rs, *partial, *m, *l, *delta;
+  float *dx, *dy32, *mu, *rs, *partial, *m, *l, *delta;
   bf16 *dxb, *xn, *hact, *dh, *qkv, *att, *datt, *dqkv;
 };
 
@@ -1053,9 +1053,10 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int F
   const size_t rows = (size_t)g * T;
   const int EA = hd.EA;
   BwdBufs b;
+  const bool epilogue = tbg::ln_ranks(E) > 0;
   b.dx = reinterpret_cast<float*>(base + w.take(rows * E * 4));
-  b.hmid = reinterpret_cast<float*>(base + w.take(rows * F * 4));
-  b.dxn = reinterpret_cast<float*>(base + w.take(rows * E * 4));
+  // dY in fp32 only where the LN backward runs as separate kernels
+  b.dy32 = epilogue ? nullptr : reinterpret_cast<float*>(base + w.take(rows * E * 4));
   b.mu = reinterpret_cast<float*>(base + w.take(rows * 4));
   b.rs = reinterpret_cast<float*>(base + w.take(rows * 4));
   // dW partials: at most the largest splits x stack slice, or the gains'
@@ -1066,7 +1067,8 @@ BwdBufs bwd_layout(unsigned char* base, Workspace& w, int g, int T, int E, int F
     const size_t need = (size_t)dw_splits(s[0], s[1], K) * s[0] * s[1];
     part = need > part ? need : part;
   }
-  const size_t gparts = ((rows + ROWS_PER_PART - 1) / ROWS_PER_PART) * E;
+  const size_t gparts =
+      (epilogue ? gemm::cdiv((int)rows, gemm::BM) : (rows + ROWS_PER_PART - 1) / ROWS_PER_PART) * E;
   part = gparts > part ? gparts : part;
   b.partial = reinterpret_cast<float*>(base + w.take(part * 4));
   // the attention's row statistics [g, H, T] each, and the query side's
@@ -1184,26 +1186,21 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
       const bf16* xin = xsave + ((size_t)(2 * l) * n + c0) * T * E;
       const bf16* xmid = xsave + ((size_t)(2 * l + 1) * n + c0) * T * E;
 
-      // MLP backward (recompute xn2, hmid, hact)
-      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, EL, stream));
-      RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wfc, F, M, F, E,
-                                               EpiF32Gelu{b.hact, F, b.hmid, M, F}, stream)));
+      // MLP backward: recompute xn2 (and the rows' mu, rstd), then hact and
+      // dh in one kernel (hmid stays in its registers)
+      RETURN_IF_ERROR(layer_norm(xmid, E, g2 + (size_t)l * E, b.xn, E, M, E, EL, stream, b.mu,
+                                 b.rs));
+      RETURN_IF_ERROR(mlp_front(b.xn, b.dxb, Wfc, Wfc2, b.hact, b.dh, M, E, F, stream));
       RETURN_IF_ERROR(weight_grad(b.hact, b.dxb, F, E, M, b.partial, dwfc2 + (size_t)l * F * E,
                                   stream));
-      RETURN_IF_ERROR((gemm::run<false, true>(b.dxb, E, Wfc2, E, M, F, E,
-                                              EpiGeluGrad{b.dh, F, b.hmid}, stream)));
       RETURN_IF_ERROR(weight_grad(b.xn, b.dh, E, F, M, b.partial, dwfc + (size_t)l * E * F,
                                   stream));
-      RETURN_IF_ERROR((gemm::run<false, true>(b.dh, F, Wfc, F, M, E, F, EpiF32{b.dxn, E, 0},
-                                              stream)));
-      ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xmid, g2 + (size_t)l * E, b.dxn, b.dx, b.dxb,
-                                                     b.mu, b.rs, M, E, EL);
-      RETURN_IF_ERROR(cudaGetLastError());
-      RETURN_IF_ERROR(gain_grad(xmid, b.dxn, b.mu, b.rs, M, E, b.partial, dg2 + (size_t)l * E,
-                                stream));
+      RETURN_IF_ERROR(ln_backward(b.dh, Wfc, F, xmid, g2 + (size_t)l * E, b.mu, b.rs, b.dx, b.dxb,
+                                  b.dy32, b.partial, dg2 + (size_t)l * E, M, E, EL, stream));
 
-      // attention backward (recompute xn1, q|k|v, att and p)
-      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, EL, stream));
+      // attention backward (recompute xn1 with mu and rstd, q|k|v, att and p)
+      RETURN_IF_ERROR(layer_norm(xin, E, g1 + (size_t)l * E, b.xn, E, M, E, EL, stream, b.mu,
+                                 b.rs));
       RETURN_IF_ERROR((gemm::run<false, false>(b.xn, E, Wqkv, E3, M, E3, E, EpiBf16{b.qkv, E3},
                                                stream)));
       RETURN_IF_ERROR(attention_fwd(b.qkv, b.att, b.m, b.l, nc, T, hd, stream));
@@ -1215,15 +1212,11 @@ int backward_impl(const bf16* xsave, const bf16* dxin, const bf16* wqkv, const b
                                     stream));
       RETURN_IF_ERROR(weight_grad(b.xn, b.dqkv, E, E3, M, b.partial, dwqkv + (size_t)l * E * E3,
                                   stream));
-      RETURN_IF_ERROR((gemm::run<false, true>(b.dqkv, E3, Wqkv, E3, M, E, E3,
-                                              EpiF32{b.dxn, E, 0}, stream)));
       // the bottom layer's bf16(dx) is the chunk's output
       bf16* dxb_out = l == 0 ? dx0 + (size_t)c0 * T * E : b.dxb;
-      ln_bwd_kernel<<<(M + 7) / 8, 256, 0, stream>>>(xin, g1 + (size_t)l * E, b.dxn, b.dx,
-                                                     dxb_out, b.mu, b.rs, M, E, EL);
-      RETURN_IF_ERROR(cudaGetLastError());
-      RETURN_IF_ERROR(gain_grad(xin, b.dxn, b.mu, b.rs, M, E, b.partial, dg1 + (size_t)l * E,
-                                stream));
+      RETURN_IF_ERROR(ln_backward(b.dqkv, Wqkv, E3, xin, g1 + (size_t)l * E, b.mu, b.rs, b.dx,
+                                  dxb_out, b.dy32, b.partial, dg1 + (size_t)l * E, M, E, EL,
+                                  stream));
     }
   }
   return 0;
@@ -1281,10 +1274,11 @@ int fused_train_backward(const bf16* xsave, const bf16* dxin, const bf16* wqkv,
 
 // The GEMM alone, for its checks and its timing beside cuBLAS: C [M, N] =
 // op(A) op(B) with A stored [M, K] or (a_mn) [K, M], B stored [K, N] or
-// (b_k) [N, K], every row stride the stored row's length; C bf16, or fp32
-// (f32) as `splits` partials [splits, M, N] over the split K.
+// (b_k) [N, K], every row stride the stored row's length; out 0: C bf16, 1:
+// fp32 as `splits` partials [splits, M, N] over the split K, 2: C =
+// bf16(gelu_tanh(product)), the forward's EpiGelu.
 int fused_train_gemm(const bf16* A, const bf16* B, void* C, int M, int N, int K, int a_mn,
-                     int b_k, int f32, int splits, cudaStream_t stream) {
+                     int b_k, int out, int splits, cudaStream_t stream) {
   const long long lda = a_mn ? M : K, ldb = b_k ? K : N;
   cudaError_t err;
   auto run = [&](auto epi) {
@@ -1293,12 +1287,14 @@ int fused_train_gemm(const bf16* A, const bf16* B, void* C, int M, int N, int K,
     if (b_k) return gemm::run<false, true>(A, lda, B, ldb, M, N, K, epi, stream, splits);
     return gemm::run<false, false>(A, lda, B, ldb, M, N, K, epi, stream, splits);
   };
-  if (f32)
+  if (out == 1)
     err = run(EpiF32{static_cast<float*>(C), N, (long long)M * N});
-  else if (splits == 1)
-    err = run(EpiBf16{static_cast<bf16*>(C), N});
-  else
+  else if (splits != 1 || (out != 0 && out != 2))
     err = cudaErrorInvalidValue;
+  else if (out == 2)
+    err = run(EpiGelu{static_cast<bf16*>(C), N});
+  else
+    err = run(EpiBf16{static_cast<bf16*>(C), N});
   return (int)err;
 }
 
@@ -1333,6 +1329,40 @@ int fused_train_attention_bwd(const bf16* qkv, const bf16* datt, const bf16* att
   if (nc == 0) return 0;
   return (int)attention_bwd(qkv, datt, att, m, l, scratch, dqkv, nc, T, heads_of(E, H), stream,
                             sides);
+}
+
+// The backward's MLP front alone, for its checks and timing: hact, dh [M, F]
+// bf16 from xn2, dxb [M, E], wfc [E, F], wfc2 [F, E], every row dense.
+int fused_train_mlp_front(const bf16* xn2, const bf16* dxb, const bf16* wfc, const bf16* wfc2,
+                          bf16* hact, bf16* dh, int M, int E, int F, cudaStream_t stream) {
+  return (int)mlp_front(xn2, dxb, wfc, wfc2, hact, dh, M, E, F, stream);
+}
+
+// Ranks of the LN epilogue's cluster for a stored n_embd E (1: a CTA owns
+// whole rows), 0 where the LN backward runs as separate kernels.
+int fused_train_ln_route(int E) { return E >= 1 ? tbg::ln_ranks(E) : -1; }
+
+// The backward's LN epilogue alone, for its checks and timing, at a width
+// the route takes: dx [M, E] fp32 += LN_bwd(A W^T) for y = LN(x) * g (A
+// [M, K], W [E, K], x [M, E] bf16, g [E], the rows' mu and rstd [M], the
+// first EL columns normalised), dxb = bf16(dx), dg [E] += the gain
+// gradient; partial: scratch of ceil(M / 128) E floats.
+int fused_train_ln_dx(const bf16* A, const bf16* W, const bf16* x, const float* g,
+                      const float* mu, const float* rs, float* dx, bf16* dxb, float* partial,
+                      float* dg, int M, int E, int K, int EL, cudaStream_t stream) {
+  if (tbg::ln_ranks(E) < 1) return (int)cudaErrorInvalidValue;
+  return (int)ln_backward(A, W, K, x, g, mu, rs, dx, dxb, nullptr, partial, dg, M, E, EL,
+                          stream);
+}
+
+// Launches of the backward's epilogue kernels since the last reset: kind 0
+// mlp_front_kernel, 1 ln_dx_kernel; kind -1 resets both to 0 and returns 0.
+long long fused_train_bwd_gemm_launches(int kind) {
+  if (kind == -1) {
+    bwd_gemm_launches[0] = bwd_gemm_launches[1] = 0;
+    return 0;
+  }
+  return kind >= 0 && kind < 2 ? bwd_gemm_launches[kind] : -1;
 }
 
 // Launches of the wgmma route's kernels since the last reset: kind 0 the

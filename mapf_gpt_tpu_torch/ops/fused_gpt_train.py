@@ -38,6 +38,17 @@ Port of ``mapf_gpt_tpu/ops/fused_gpt_train.py``:
   ``csrc/attn_wgmma_bwd.cuh``) at T <= 256 and head widths padded to 16,
   32, 48 or 64, "tile" (``csrc/attn_tile.cuh``'s mma.sync tiles) at the
   other widths up to 128 and at T past 256, "wide" (the slabs) past 128.
+- :func:`mlp_front` and :func:`ln_backward_dx` run the backward's two
+  epilogue kernels alone (``csrc/train_bwd_gemm.cuh``'s ``mlp_front_kernel``:
+  hact and dh from one kernel of two products; ``ln_dx_kernel``: the dX
+  product with the LayerNorm backward and the gain partials in its
+  epilogue), beside their plain versions :func:`mlp_front_reference` and
+  :func:`ln_backward_dx_reference`; :func:`ln_route` names how the
+  backward takes a width's LayerNorm ("epilogue": one CTA owns a row,
+  "cluster": a row's 256-column tiles as one thread-block cluster,
+  "kernels": the separate kernels past 2048 columns), the mirror of
+  ``tbg::ln_ranks``; :func:`bwd_gemm_launches` reads their launch
+  counters.
 - :func:`fused_loss_fn` is ``train_step.loss_fn`` through the kernels:
   embedding (ids read as JAX indexing reads them, as the JAX function's
   ``wte[tokens]``), the stack, fp32 LN_f and the tied head, cross-entropy
@@ -74,6 +85,10 @@ WGMMA_KERNELS = ("attn_wgmma_kernel", "attn_bwd_q_wgmma", "attn_bwd_kv_wgmma")
 _WGMMA_WIDTHS = (16, 32, 48, 64)   # padded head widths of the wgmma kernels
 _T_WGMMA = 256                     # their longest T
 _D_TILE = 128                      # the widest head of the mma.sync tiles; slabs past it
+BWD_GEMM_KERNELS = ("mlp_front_kernel", "ln_dx_kernel")   # csrc/train_bwd_gemm.cuh
+LN_ROUTES = ("epilogue", "cluster", "kernels")
+_LN_BN = 256                       # the LN epilogue's output tile (columns of a CTA)
+_LN_MAX_RANKS = 8                  # its largest cluster: stored n_embd up to 2048
 
 
 class TrainStacks(NamedTuple):
@@ -211,11 +226,9 @@ def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainSt
         # MLP backward (recompute xn2, hmid)
         xn2f, xhat2, rstd2 = _ln(x_mid.float(), stacks.g2[l])
         xn2 = xn2f.to(bf16)
-        hmid = _mm(xn2, stacks.wfc[l])
-        hact = _gelu_tanh(hmid).to(bf16)
         dxb = dx.to(bf16)
+        hact, dhb = mlp_front_reference(xn2, stacks.wfc[l], dxb, stacks.wfc2[l])
         dwfc2[l] = _mm(rows(hact).T, rows(dxb))
-        dhb = (_mm(dxb, stacks.wfc2[l].T) * _gelu_tanh_grad(hmid)).to(bf16)
         dwfc[l] = _mm(rows(xn2).T, rows(dhb))
         dx_ln2, dg2_rows = _ln_bwd(_mm(dhb, stacks.wfc[l].T), xhat2, rstd2, stacks.g2[l])
         dg2[l] = rows(dg2_rows).sum(0)
@@ -241,6 +254,34 @@ def train_bwd_reference(xsave: torch.Tensor, dxin: torch.Tensor, stacks: TrainSt
         dg1[l] = rows(dg1_rows).sum(0)
         dx = dx + dx_ln1
     return dx.to(bf16), tuple(grads)
+
+
+def mlp_front_reference(xn2: torch.Tensor, wfc: torch.Tensor, dxb: torch.Tensor,
+                        wfc2: torch.Tensor):
+    """Plain version of the backward's MLP front: bf16 xn2, dxb [..., E],
+    wfc [E, F], wfc2 [F, E] -> (hact, dh) bf16 [..., F]: hmid = xn2 wfc in
+    fp32, hact = bf16(gelu(hmid)), dh = bf16((dxb wfc2^T) gelu'(hmid))."""
+    hmid = _mm(xn2, wfc)
+    return (_gelu_tanh(hmid).to(torch.bfloat16),
+            (_mm(dxb, wfc2.T) * _gelu_tanh_grad(hmid)).to(torch.bfloat16))
+
+
+def ln_backward_dx_reference(a: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                             g: torch.Tensor, dx: torch.Tensor, mu: torch.Tensor,
+                             rstd: torch.Tensor, el: int):
+    """Plain version of the LN epilogue: dy = a w^T (bf16 a [M, K], w [E,
+    K]; fp32) is the gradient of y = LN(x) g (bf16 x [M, E], fp32 g [E], the
+    rows' mu and rstd [M]), normalised over the first el columns ->
+    (dx + its LN backward fp32 [M, E], that in bf16, the gain gradient [E]).
+    Columns past el keep dx."""
+    dy = _mm(a, w.T)
+    xhat = (x.float() - mu[:, None]) * rstd[:, None]
+    d = dy * g
+    m1 = d[:, :el].sum(-1, keepdim=True) / el
+    m2 = (d * xhat)[:, :el].sum(-1, keepdim=True) / el
+    out = dx.clone()
+    out[:, :el] += ((d - m1 - xhat * m2) * rstd[:, None])[:, :el]
+    return out, out.to(torch.bfloat16), (dy * xhat).sum(0)
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +316,33 @@ def attention_route(t: int, e: int, n_head: int) -> str:
     if dh > _D_TILE:
         return "wide"
     return "wgmma" if t <= _T_WGMMA and padded_head_dim(dh) in _WGMMA_WIDTHS else "tile"
+
+
+def ln_cluster_ranks(e: int) -> int:
+    """CTAs of the LN epilogue's cluster for n_embd e (csrc/train_bwd_gemm.cuh's
+    ``ln_ranks`` of the stored width): one a 256-column tile of a row, 0
+    past ``_LN_MAX_RANKS`` tiles."""
+    ranks = -(-stored_width(e) // _LN_BN)
+    return ranks if ranks <= _LN_MAX_RANKS else 0
+
+
+def ln_route(e: int) -> str:
+    """How the backward takes the LayerNorm of n_embd e (``chip_smoke.py``
+    holds this to the library's answer): "epilogue", ``ln_dx_kernel`` with
+    a CTA owning whole rows (n_embd up to 256); "cluster", ``ln_dx_kernel``
+    as clusters of :func:`ln_cluster_ranks` CTAs (up to 2048); "kernels",
+    the product into fp32, then ``ln_bwd_kernel`` and ``dg_partial_kernel``."""
+    ranks = ln_cluster_ranks(e)
+    return LN_ROUTES[2 if ranks == 0 else 0 if ranks == 1 else 1]
+
+
+def bwd_gemm_launch_count(layers: int, n: int, e: int) -> dict[str, int]:
+    """Launches of ``BWD_GEMM_KERNELS`` by one backward chunk of `layers`
+    layers on n contexts of n_embd e: an MLP front a layer and group of
+    ``GROUP`` contexts, and two LN epilogues where :func:`ln_route` takes
+    the width."""
+    per = layers * -(-n // GROUP)
+    return dict(zip(BWD_GEMM_KERNELS, (per, 0 if ln_route(e) == "kernels" else 2 * per)))
 
 
 def _unpad_grads(grads: tuple, e: int, n_head: int) -> tuple:
@@ -312,6 +380,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_train_backward.restype = i
     lib.fused_train_gemm.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.fused_train_gemm.restype = i
+    lib.fused_train_mlp_front.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.fused_train_mlp_front.restype = i
+    lib.fused_train_ln_route.argtypes = [i]
+    lib.fused_train_ln_route.restype = i
+    lib.fused_train_ln_dx.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.fused_train_ln_dx.restype = i
+    lib.fused_train_bwd_gemm_launches.argtypes = [i]
+    lib.fused_train_bwd_gemm_launches.restype = ctypes.c_longlong
     lib.fused_train_error_string.argtypes = [i]
     lib.fused_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -444,6 +520,91 @@ def reset_wgmma_launches() -> None:
     _library().fused_train_wgmma_launches(-1)
 
 
+def bwd_gemm_launches() -> dict[str, int]:
+    """Launches of the backward's epilogue kernels (``BWD_GEMM_KERNELS``)
+    since :func:`reset_bwd_gemm_launches`, counted by the library where it
+    launches them: inside ``train_backward`` and the kernels run alone."""
+    lib = _library()
+    return {name: lib.fused_train_bwd_gemm_launches(k) for k, name in enumerate(BWD_GEMM_KERNELS)}
+
+
+def reset_bwd_gemm_launches() -> None:
+    _library().fused_train_bwd_gemm_launches(-1)
+
+
+def _check_cuda(what: str, tensors: dict, dtype: torch.dtype, dev: torch.device) -> None:
+    for name, (ten, shape) in tensors.items():
+        check_tensor(what, name, ten, dtype, shape, dev)
+
+
+def mlp_front(xn2: torch.Tensor, wfc: torch.Tensor, dxb: torch.Tensor, wfc2: torch.Tensor):
+    """The backward's MLP front alone (``mlp_front_kernel``, as
+    ``train_backward`` runs it a layer and group): bf16 xn2, dxb [M, E], wfc
+    [E, F], wfc2 [F, E], E and F multiples of 8 -> (hact, dh) bf16 [M, F].
+    CPU tensors take :func:`mlp_front_reference`; CUDA tensors launch the
+    kernel or raise."""
+    if xn2.device.type == "cpu":
+        return mlp_front_reference(xn2, wfc, dxb, wfc2)
+    m, e = xn2.shape
+    f = wfc.shape[-1]
+    if e % 8 or f % 8:
+        raise ValueError(f"mlp_front: E and F must be multiples of 8; got {e}, {f}")
+    if xn2.device.type != "cuda":
+        raise ValueError(f"mlp_front: no kernel for device {xn2.device}")
+    dev = xn2.device
+    _check_cuda("mlp_front", {"xn2": (xn2, (m, e)), "dxb": (dxb, (m, e)), "wfc": (wfc, (e, f)),
+                              "wfc2": (wfc2, (f, e))}, torch.bfloat16, dev)
+    h, d = (torch.empty((m, f), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.fused_train_mlp_front(xn2.data_ptr(), dxb.data_ptr(), wfc.data_ptr(),
+                                       wfc2.data_ptr(), h.data_ptr(), d.data_ptr(), m, e, f,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "MLP front")
+    return h, d
+
+
+def ln_backward_dx(a: torch.Tensor, w: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
+                   dx: torch.Tensor, mu: torch.Tensor, rstd: torch.Tensor, el: int):
+    """The backward's LN epilogue alone (``ln_dx_kernel``, as
+    ``train_backward`` runs it twice a layer and group): bf16 a [M, K], w
+    [E, K], x [M, E], fp32 g [E], dx [M, E], mu and rstd [M], E and K
+    multiples of 8 and E at most 2048 (:func:`ln_route`) -> (dx updated in
+    place by the LN backward of dy = a w^T, its bf16, the gain gradient
+    [E]), the values of :func:`ln_backward_dx_reference`.  CPU tensors
+    take that; CUDA tensors launch the kernel or raise."""
+    if a.device.type == "cpu":
+        new, dxb, dg = ln_backward_dx_reference(a, w, x, g, dx, mu, rstd, el)
+        return dx.copy_(new), dxb, dg
+    m, k = a.shape
+    e = w.shape[0]
+    if e % 8 or k % 8:
+        raise ValueError(f"ln_backward_dx: E and K must be multiples of 8; got {e}, {k}")
+    if ln_route(e) == "kernels":
+        raise ValueError(f"ln_backward_dx: the LN epilogue takes n_embd up to "
+                         f"{_LN_BN * _LN_MAX_RANKS}; got {e}")
+    if not 1 <= el <= e:
+        raise ValueError(f"ln_backward_dx: el must be from 1 to {e}; got {el}")
+    if a.device.type != "cuda":
+        raise ValueError(f"ln_backward_dx: no kernel for device {a.device}")
+    dev = a.device
+    _check_cuda("ln_backward_dx", {"a": (a, (m, k)), "w": (w, (e, k)), "x": (x, (m, e))},
+                torch.bfloat16, dev)
+    _check_cuda("ln_backward_dx", {"g": (g, (e,)), "dx": (dx, (m, e)), "mu": (mu, (m,)),
+                                   "rstd": (rstd, (m,))}, torch.float32, dev)
+    dxb = torch.empty((m, e), dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((-(-m // 128), e), dtype=torch.float32, device=dev)
+    dg = torch.zeros(e, dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.fused_train_ln_dx(a.data_ptr(), w.data_ptr(), x.data_ptr(), g.data_ptr(),
+                                   mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                                   dxb.data_ptr(), partial.data_ptr(), dg.data_ptr(), m, e, k,
+                                   el, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "LN epilogue")
+    return dx, dxb, dg
+
+
 def _heads_nopad(what: str, qkv: torch.Tensor, n_head: int) -> tuple[int, int, int]:
     n, t, e3 = qkv.shape
     e = e3 // 3
@@ -546,13 +707,16 @@ def train_attention_backward(qkv: torch.Tensor, datt: torch.Tensor, att: torch.T
 
 
 def gemm_tile(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_k: bool = False,
-              splits: int = 0) -> torch.Tensor:
+              splits: int = 0, gelu: bool = False) -> torch.Tensor:
     """The layer kernels' shared GEMM (``csrc/gemm_tile.cuh``) alone, for its
     checks and its timing beside cuBLAS; on no path of the port.  bf16 CUDA
     tensors a, stored [M, K] or, with a_mn, [K, M], and b, stored [K, N] or,
-    with b_k, [N, K] -> op(a) op(b) [M, N] in bf16, or, with splits > 0, the
-    fp32 partial products of the K range split that many ways [splits, M,
-    N] (their sum is the product)."""
+    with b_k, [N, K] -> op(a) op(b) [M, N] in bf16 (with gelu, the
+    forward's tanh-GELU epilogue on it), or, with splits > 0, the fp32
+    partial products of the K range split that many ways [splits, M, N]
+    (their sum is the product)."""
+    if gelu and splits:
+        raise ValueError("gemm_tile: the GELU epilogue writes one bf16 product, not splits")
     m, k = a.shape[::-1] if a_mn else a.shape
     n = b.shape[0] if b_k else b.shape[1]
     for name, ten in (("a", a), ("b", b)):
@@ -565,7 +729,7 @@ def gemm_tile(a: torch.Tensor, b: torch.Tensor, a_mn: bool = False, b_k: bool = 
     lib = _library()
     with torch.cuda.device(a.device):
         rc = lib.fused_train_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, int(a_mn),
-                                  int(b_k), int(splits > 0), max(splits, 1),
+                                  int(b_k), 2 if gelu else int(splits > 0), max(splits, 1),
                                   torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(lib, rc, "gemm")
     return out

@@ -64,9 +64,10 @@ def test_kernel_sources_name_the_shared_attention_header():
     csrc/attn_tile.cuh; attention.cu, fused_blocks.cu and fused_train.cu
     also share csrc/attn_wgmma.cuh, which reaches csrc/wgmma.cuh through
     csrc/gemm_tile.cuh, as the layer kernels do; fused_train.cu includes
-    the training attention's backward, csrc/attn_wgmma_bwd.cuh; fused_gpt.cu
-    includes csrc/wgmma.cuh; each library's key follows the headers its
-    source includes."""
+    the training attention's backward, csrc/attn_wgmma_bwd.cuh, and the
+    backward's MLP front and LayerNorm epilogue, csrc/train_bwd_gemm.cuh;
+    fused_gpt.cu includes csrc/wgmma.cuh; each library's key follows the
+    headers its source includes."""
     for name in ("attention", "fused_blocks"):
         assert [p.name for p in _build.source_files(name)] == [
             f"{name}.cu", "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "wgmma.cuh"]
@@ -74,7 +75,7 @@ def test_kernel_sources_name_the_shared_attention_header():
         "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_train")] == [
         "fused_train.cu", "attn_tile.cuh", "attn_wgmma.cuh", "attn_wgmma_bwd.cuh",
-        "gemm_tile.cuh", "wgmma.cuh"]
+        "gemm_tile.cuh", "train_bwd_gemm.cuh", "wgmma.cuh"]
 
 
 def test_layer_kernels_share_the_hopper_gemm():
