@@ -40,16 +40,20 @@ after phase 2, so that a faulty attention kernel fails within seconds:
 5. 2M timing: the kernel on the rollout's 512 contexts beside a whole
    rollout step and its bound; then one forward at 8192 contexts (the
    rollout benchmark's 256 envs x 32 agents), kernel and plain version,
-   beside the card's bound.
+   beside the card's bound and the special-function floor (the
+   attention's exp2s and GELU's ex2 and reciprocal, ``e2e_mufu_ms``).
 6. 6M: phases 3-5 for the trained 6M (``checkpoints/MAPF-GPT-6M-r5.pt``,
    E=256) through the same e2e kernel: 512 contexts compared, T = 200, the
    same 16 x 32 x 64 rollout, timing at 512 and 8192 contexts.  Then the
    e2e kernel at the shapes it takes beyond the 2M's and 6M's
    (``E2E_SHAPES``: head dims 16, 64 and 128, 12 heads, T = 130 and 1,
    n_embd 144), random weights, 300 contexts each, phase 3's tolerances,
-   its counter exactly one a forward; the last shape (head dim 128, T =
-   130) with the layers' matrices scaled 3x, so that the layers and not
-   the embedding set the logits.
+   its counter exactly one a forward; the last two shapes (head dims 128
+   and 32, T = 130) with the layers' matrices scaled 3x, so that the layers
+   and not the embedding set the logits.  The build phase prints the e2e
+   kernel's ptxas registers, spill bytes and shared-memory bytes at every
+   width it built (``[e2e regs]``) and fails on a spill at the 2M's or 6M's
+   width.
 7. 85M at full width and depth (12L/12H/768d), weights from
    ``models.gpt.init_params`` under ``--seed``, on the chunked route (plain
    embedding and head, the layer-stack kernel): 128 contexts compared with
@@ -273,6 +277,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -325,13 +330,16 @@ WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12),   # (n_embd, heads, layers) bu
 # scale of the layers' matrices): head dims 16, 64 and 128, 12 heads, T = 200, 130
 # and 1 (T = 200 at the 6M's width is phase 6's, on the trained 6M), n_embd 144
 # (not a multiple of 32: a K slab of 16 rows, a q|k|v tile of 48 columns); the last
-# at head dim 128 and T = 130 (keys 130 .. 191 of the last chunk masked) with the
-# layers' matrices 3x init_params', so that the layers set the logits and a wrong
+# at head dim 128 and T = 130 (keys 130 .. 191 of the last chunk masked), and at
+# head dim 32 and T = 130 (keys 130 .. 255 of the tile masked), with the layers'
+# matrices 3x init_params', so that the layers set the logits and a wrong
 # attention (a denominator counting the masked keys) moves them by several
 # tolerances, which at std 0.02 it may not
 E2E_SHAPES = ((160, 10, 4, 200, 1.0), (256, 4, 4, 256, 1.0), (192, 12, 3, 256, 1.0),
               (128, 1, 2, 100, 1.0), (192, 3, 3, 130, 1.0), (160, 5, 3, 1, 1.0),
-              (144, 9, 3, 200, 1.0), (256, 2, 2, 130, 3.0))
+              (144, 9, 3, 200, 1.0), (256, 2, 2, 130, 3.0),
+              # the 2M's width (head dim 32: the wgmma attention) at T = 130, 3x
+              (160, 5, 3, 130, 3.0))
 N_E2E_SHAPES = 300               # not a multiple of the grid's 132 CTAs
 N_WIDTHS = 64                    # contexts of each width's compare
 N_WIDTHS_TIME = 2048             # contexts of each width's timing
@@ -503,6 +511,35 @@ def e2e_bound(n: int, w: fused_gpt.FusedWeights, t: int) -> tuple[float, str]:
     return bound(n * prod, n * (exps + 2 * e * vocab), weights + io_bytes)
 
 
+def e2e_mufu_ms(n: int, w: fused_gpt.FusedWeights, t: int) -> float:
+    """Least time (ms) of the e2e forward's special-function work on n
+    contexts (mufu_floor_ms): an exp2 a score of the full layers and of the
+    thinned row, and an ex2 and a reciprocal a GELU (4E a row, one row in
+    the thinned layer)."""
+    layers, e, _ = w.wqkv.shape
+    exps = (layers - 1) * w.n_head * t * t + w.n_head * t
+    gelus = (layers - 1) * t * 4 * e + 4 * e
+    return mufu_floor_ms(n * (exps + 2 * gelus))
+
+
+def e2e_ptxas(log_text: str) -> list[tuple[int, int, int, int, int]]:
+    """(n_embd, heads, registers, spill store bytes, spill load bytes) of each
+    e2e kernel in a build's ptxas output."""
+    out, width = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"FwdILi(\d+)ELi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            width = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and width:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and width:
+            out.append((*width, int(m.group(1)), *spills))
+            width = None
+    return out
+
+
 def blocks_bound(n: int, stacks: fused_blocks.LayerStacks, t: int,
                  last_only: bool) -> tuple[float, str]:
     """Least time (ms) of the layer stack on n contexts: its bf16 products
@@ -652,14 +689,16 @@ def e2e_model(label: str, model, seed: int, dev) -> dict:
     bound_step, _ = e2e_bound(real.shape[0], w, cfg.block_size)
     log(f"[timing] {label} N={real.shape[0]}: kernel {ms_step:.3f} ms of a "
         f"{1e3 * dt / STEPS:.3f} ms rollout step, bound {bound_step:.3f} ms, "
-        f"{100 * bound_step / ms_step:.2f} % of bound")
+        f"{100 * bound_step / ms_step:.2f} % of bound, special-function floor "
+        f"{e2e_mufu_ms(real.shape[0], w, cfg.block_size):.3f} ms")
     tokens = real.repeat(N_TIME // real.shape[0], 1)
     ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=5)
     plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
                                 for c in tokens.split(PLAIN_CHUNK[label])], reps=2)
     bound_ms, bound_by = e2e_bound(N_TIME, w, cfg.block_size)
     log(f"[timing] {label} N={N_TIME}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
+        f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound, "
+        f"special-function floor {e2e_mufu_ms(N_TIME, w, cfg.block_size):.3f} ms")
     return {"name": "fused_gpt_e2e", "model": label, "route": "cuda",
             "source": "mapf_gpt_tpu_torch/csrc/fused_gpt.cu",
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:182",
@@ -2348,6 +2387,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] fused_gpt kernel config {fused_gpt.kernel_config()}")
+    consumer_regs = re.search(r"CONSUMER_REGS = (\d+)",
+                              (_build.CSRC / "fused_gpt.cu").read_text()).group(1)
+    for name, text in _build.build_log.items():
+        if not name.startswith("fused_gpt"):
+            continue
+        for e, h, regs, stores, loads in e2e_ptxas(text):
+            smem = fused_gpt.kernel_config(e, h)[(e, h)]["smem_bytes"]
+            log(f"[e2e regs] E={e} H={h}: {regs} registers at launch (consumers "
+                f"{consumer_regs} after setmaxnreg), spill stores {stores} B, spill loads "
+                f"{loads} B, shared memory {smem} B")
+            if (e, h) in fused_gpt._DEFAULT_WIDTHS and stores + loads:
+                raise RuntimeError(f"e2e kernel E={e} H={h}: ptxas spills {stores} + {loads} "
+                                   "bytes")
     log(f"[build] fused_blocks kernel config {fused_blocks.kernel_config()}")
 
     # 12. the attention kernel against its plain version, first; 2b. the layer kernels' GEMM

@@ -32,8 +32,9 @@
 //     over the warp's Q rows of the tile in shared memory (free once S is
 //     done) and stored by TMA, which clips the rows past T;
 //   * at D >= 48 the two warpgroups' softmaxes take turns (a "ticket"
-//     mbarrier: tile i's exp2s start when tile i - 1's are done), so one
-//     warpgroup's exp2s run while the other's products and epilogue do;
+//     mbarrier: tile i's exp2s start when all four warps of tile i - 1 are
+//     done with theirs), so one warpgroup's exp2s run while the other's
+//     products and epilogue do;
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240): scores 128, P 64, O up to 32 a thread.
 // On the card the tile runs well below the special-function units' rate
@@ -425,11 +426,16 @@ __device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, in
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = ex2(fminf(sc[j][e], EXP2_CLAMP));
     if (T < T_MAX) {
+      // key j * 8 + 2 c4 + (e & 1) is masked when j * 8 + (e & 1) reaches
+      // key_lim: a compare with an immediate, so that no per-thread key index
+      // is held in a register (the e2e kernel, which inlines this tile in its
+      // layer loop, spilled them)
+      const int key_lim = T - 2 * c4;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (j * 8 + 2 * c4 + (e & 1) >= T) sc[j][e] = 0.f;
+          if (j * 8 + (e & 1) >= key_lim) sc[j][e] = 0.f;
     }
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk)
@@ -443,7 +449,14 @@ __device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, in
       }
     row_sums(rs, sum, inv);
   }
-  if (Geo<D>::TICKET && tid == 0) gemm::mbar_arrive(ticket);
+  // the turn passes once every warp of the warpgroup is past its wait: were
+  // one thread to arrive alone, a warp still polling the previous phase
+  // would see the next one and wait for the other warpgroup's next turn,
+  // which may never come (the ticket counts 4 arrivals, one a warp)
+  if (Geo<D>::TICKET) {
+    __syncwarp();
+    if (lane == 0) gemm::mbar_arrive(ticket);
+  }
 
   // O = P V over the 16 slices of 16 keys
   float o[G::BOX / 8][4];
@@ -497,7 +510,7 @@ attn_wgmma_kernel(const __grid_constant__ Io io, int pairs, int T, float c2) {
       gemm::mbar_init(&full[s], 1);
       gemm::mbar_init(&empty[s], 2);   // each consumer warpgroup frees the stage
     }
-    gemm::mbar_init(ticket, 1);
+    gemm::mbar_init(ticket, 4);   // a warpgroup's warps
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();

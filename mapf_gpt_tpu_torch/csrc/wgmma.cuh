@@ -1,9 +1,12 @@
 // wgmma.mma_async (Hopper, sm_90a) for bf16 operands and fp32 accumulators:
 // one warpgroup (4 warps) computes a 64 x N tile, k = 16 a call.
-//   Mma<N>::run<TA, TB>(d, a, b, acc): A and B from shared memory, N = 128
-//     or 256; TA = 1 reads A MN-major (transposed), TB = 0 reads B K-major
-//     (transposed), the instruction's imm-trans-a and imm-trans-b; acc = 0
-//     overwrites d instead of adding to it.
+//   Mma<N>::run<TA, TB>(d, a, b, acc): A and B from shared memory, N = 64,
+//     128, 192 or 256; TA = 1 reads A MN-major (transposed), TB = 0 reads B
+//     K-major (transposed), the instruction's imm-trans-a and imm-trans-b;
+//     acc = 0 overwrites d instead of adding to it.
+//   MmaRs<N>::run<TB>(d, a, b, acc): A from registers (a[4], mma.m16n8k16's
+//     A fragment of the warp's 16 rows), B from shared memory, N = 64, 128,
+//     192 or 256.
 //   ss<128>(d, a, b) = Mma<128>::run<0, 1>(d, a, b, 1): A K-major, B
 //     MN-major (a [k][n] row-major weight goes in as it is), adding to d.
 // a and b are matrix descriptors: make_desc for no-swizzle core-matrix
@@ -68,89 +71,82 @@ __device__ __forceinline__ void fence_operands(float (*d)[4]) {
 template <int N>
 struct Mma;
 
-template <>
-struct Mma<128> {
-  template <int TA, int TB>
-  static __device__ __forceinline__ void run(float (*d)[4], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-  }
-};
+// The widths, written by macro: the accumulators of n8 tiles j .. j + 7
+// (32 registers) as operands, and their names in the instruction.
+#define WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define WG_D32(j) WG_D4(j), WG_D4(j + 1), WG_D4(j + 2), WG_D4(j + 3), WG_D4(j + 4), \
+                  WG_D4(j + 5), WG_D4(j + 6), WG_D4(j + 7)
+#define WG_N0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+              "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_N1 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+              "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+              "%62, %63"
+#define WG_N2 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, " \
+              "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, "  \
+              "%94, %95"
+#define WG_N3 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "  \
+              "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+              "%122, %123, %124, %125, %126, %127"
+// OPS: the accumulators' operand list in parentheses
+#define WG_LIST(...) __VA_ARGS__
+// A and B from shared memory; IA the number of the first operand after the
+// accumulators
+#define WG_SS(N, NAMES, OPS, IA, IB, IP, ITA, ITB)                                        \
+  template <>                                                                             \
+  struct Mma<N> {                                                                         \
+    template <int TA, int TB>                                                             \
+    static __device__ __forceinline__ void run(float (*d)[4], uint64_t a, uint64_t b,     \
+                                               int acc) {                                 \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" NAMES      \
+                   "}, %" IA ", %" IB ", p, 1, 1, %" ITA ", %" ITB ";\n}\n"                \
+                   : WG_LIST OPS                                                          \
+                   : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));                         \
+    }                                                                                     \
+  };
+// A from registers (four, named IA), B from shared memory
+#define WG_RS(N, NAMES, OPS, IA, IB, IP, ITB)                                             \
+  template <>                                                                             \
+  struct MmaRs<N> {                                                                       \
+    template <int TB>                                                                     \
+    static __device__ __forceinline__ void run(float (*d)[4], const unsigned a[4],        \
+                                               uint64_t b, int acc) {                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" NAMES      \
+                   "}, {" IA "}, %" IB ", p, 1, 1, %" ITB ";\n}\n"                          \
+                   : WG_LIST OPS                                                          \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),        \
+                     "n"(TB));                                                            \
+    }                                                                                     \
+  };
 
-template <>
-struct Mma<256> {
-  template <int TA, int TB>
-  static __device__ __forceinline__ void run(float (*d)[4], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, %131, %132;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
-          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
-          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
-          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
-          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
-          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
-          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
-          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
-          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
-          "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
-          "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
-          "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
-          "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
-          "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
-          "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
-          "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
-          "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-  }
-};
+WG_SS(64, WG_N0, (WG_D32(0)), "32", "33", "34", "35", "36")
+WG_SS(128, WG_N0 ", " WG_N1, (WG_D32(0), WG_D32(8)), "64", "65", "66", "67", "68")
+WG_SS(192, WG_N0 ", " WG_N1 ", " WG_N2, (WG_D32(0), WG_D32(8), WG_D32(16)), "96", "97", "98",
+      "99", "100")
+WG_SS(256, WG_N0 ", " WG_N1 ", " WG_N2 ", " WG_N3,
+      (WG_D32(0), WG_D32(8), WG_D32(16), WG_D32(24)), "128", "129", "130", "131", "132")
+
+template <int N>
+struct MmaRs;
+
+WG_RS(64, WG_N0, (WG_D32(0)), "%32, %33, %34, %35", "36", "37", "38")
+WG_RS(128, WG_N0 ", " WG_N1, (WG_D32(0), WG_D32(8)), "%64, %65, %66, %67", "68", "69", "70")
+WG_RS(192, WG_N0 ", " WG_N1 ", " WG_N2, (WG_D32(0), WG_D32(8), WG_D32(16)),
+      "%96, %97, %98, %99", "100", "101", "102")
+WG_RS(256, WG_N0 ", " WG_N1 ", " WG_N2 ", " WG_N3,
+      (WG_D32(0), WG_D32(8), WG_D32(16), WG_D32(24)), "%128, %129, %130, %131", "132", "133",
+      "134")
+
+#undef WG_D4
+#undef WG_D32
+#undef WG_N0
+#undef WG_N1
+#undef WG_N2
+#undef WG_N3
+#undef WG_SS
+#undef WG_RS
+#undef WG_LIST
 
 template <int N>
 __device__ __forceinline__ void ss(float (*d)[4], uint64_t a, uint64_t b) {

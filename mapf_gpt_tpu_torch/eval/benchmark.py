@@ -1,7 +1,7 @@
 """Full POGEMA-suite benchmark CLI — the ``benchmark.py`` equivalent, on the port.
 
     python -m mapf_gpt_tpu_torch.eval.benchmark --configs-root <eval_configs dir> \
-        [--weights ... | --random-init 2M] [--suites 01-random 02-mazes ...] \
+        [--weights ... [--model 2M] | --random-init 2M] [--suites 01-random 02-mazes ...] \
         [--device cuda] [--limit N] [--out-dir results]
 
 Port of ``mapf_gpt_tpu/eval/benchmark.py``: runs every suite (01-random,
@@ -27,6 +27,8 @@ def main(argv=None):
                    help="directory holding one directory per suite")
     p.add_argument("--suites", nargs="*", default=DEFAULT_SUITES)
     p.add_argument("--weights", default=None)
+    p.add_argument("--model", default=None,
+                   help="the checkpoint's size (passed through to eval.run)")
     p.add_argument("--random-init", default=None)
     p.add_argument("--algo", default=None,
                    help="key into each suite yaml's algorithms block "
@@ -60,7 +62,8 @@ def main(argv=None):
                  "--policy-batch", str(args.policy_batch), "--device", args.device]
         if args.max_contexts is not None:
             argv2 += ["--max-contexts", str(args.max_contexts)]
-        for flag, value in (("--weights", args.weights), ("--random-init", args.random_init),
+        for flag, value in (("--weights", args.weights), ("--model", args.model),
+                            ("--random-init", args.random_init),
                             ("--algo", args.algo), ("--weights-root", args.weights_root)):
             if value:
                 argv2 += [flag, value]

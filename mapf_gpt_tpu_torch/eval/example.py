@@ -1,7 +1,7 @@
 """Single-episode CLI with an SVG animation — the ``example.py`` equivalent, on the port.
 
     python -m mapf_gpt_tpu_torch.eval.example --suite <dir with maps.yaml> \
-        --map validation-random-seed-000 [--weights ... | --random-init 2M] \
+        --map validation-random-seed-000 [--weights ... [--model 2M] | --random-init 2M] \
         --num-agents 32 --seed 0 [--device cuda] --svg out/episode.svg
 
 Port of ``mapf_gpt_tpu/eval/example.py``: one episode on a named map
@@ -30,6 +30,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-episode-steps", type=int, default=128)
     p.add_argument("--weights", default=None)
+    p.add_argument("--model", default=None, choices=list(CONFIGS))
     p.add_argument("--random-init", default=None, choices=list(CONFIGS))
     p.add_argument("--weights-root", default=None)
     p.add_argument("--device", default="cuda")

@@ -2,7 +2,7 @@
 
     python -m mapf_gpt_tpu_torch.eval.run --suite <dir with maps.yaml and <suite>.yaml> \
         [--weights path/to/MAPF-GPT-2M.pt | --weights <trainer out dir> | --random-init 2M] \
-        [--algo MAPF-GPT-2M] [--mask greed_action ...] [--device cuda] \
+        [--model 2M] [--algo MAPF-GPT-2M] [--mask greed_action ...] [--device cuda] \
         [--batch-envs 128] [--out-dir results] [--argmax] [--limit N]
 
 Port of ``mapf_gpt_tpu/eval/run.py``: loads the suite's ``maps.yaml`` and
@@ -16,6 +16,11 @@ view.
 overrides), ``mask_*`` flags switch on the input ablations, and
 ``parallel_backend``/``num_process`` are not used: episodes are batched on
 the device instead (``--batch-envs``).
+
+``--model SIZE`` (a ``CONFIGS`` name, as the reference takes it) names the
+checkpoint's size: inferred from ``path_to_weights`` when not given, checked
+against the config a checkpoint holds (a mismatch exits naming both), and
+naming a trainer directory's rows ``MAPF-GPT-<size>-ckpt``.
 """
 
 from __future__ import annotations
@@ -63,14 +68,38 @@ def resolve_algorithm(suite_cfg: dict, args) -> tuple[dict, object]:
     return algo_cfg, mask_cfg
 
 
+def config_name(cfg) -> str | None:
+    """The ``CONFIGS`` name whose architecture `cfg` has, or None."""
+    for name, ref in CONFIGS.items():
+        if dataclasses.replace(cfg, dtype=ref.dtype, attn_impl=ref.attn_impl,
+                               dropout=ref.dropout) == ref:
+            return name
+    return None
+
+
+def _checked_config(cfg, model: str | None, path: str) -> str | None:
+    """The size of a checkpoint's config: `model` (``--model``) where given,
+    which the config must equal, else the ``CONFIGS`` name it equals."""
+    found = config_name(cfg)
+    if model is not None and found != model:
+        held = found or f"n_layer={cfg.n_layer}, n_head={cfg.n_head}, n_embd={cfg.n_embd}"
+        raise SystemExit(f"--model {model} does not match the checkpoint {path}, "
+                         f"which holds {held}")
+    return found
+
+
 def load_policy(args, algo_cfg: dict | None = None):
     """Returns (model on args.device, name).
 
     ``--weights`` is a reference-layout ``.pt`` file
     (``models/convert.load_reference_checkpoint``) or a trainer's output
     directory, whose newest ``ckpt_<step>.pt`` is read
-    (``utils/checkpoint``); ``--random-init SIZE`` draws ``init_params``
-    weights from seed 0."""
+    (``utils/checkpoint``) and whose rows are named ``MAPF-GPT-<size>-ckpt``
+    (``<size>`` is ``--model``, or else the ``CONFIGS`` name of the
+    checkpoint's config); ``--random-init SIZE`` draws ``init_params``
+    weights from seed 0.  ``--model`` (``args.model``, may be absent) is
+    inferred from ``path_to_weights`` as the reference does, and a
+    checkpoint whose config differs from it exits naming both."""
     from mapf_gpt_tpu_torch.models.convert import load_model, load_reference_checkpoint
     from mapf_gpt_tpu_torch.models.gpt import init_params
     from mapf_gpt_tpu_torch.utils import checkpoint as ckpt
@@ -87,6 +116,12 @@ def load_policy(args, algo_cfg: dict | None = None):
                 raise SystemExit(f"path_to_weights {ptw!r} not found (tried {cand}); "
                                  "pass --weights to override")
             args.weights = found[0]
+            if getattr(args, "model", None) is None:   # infer the size from the name
+                for size in CONFIGS:
+                    if size in os.path.basename(ptw):
+                        args.model = size
+                        break
+    model = getattr(args, "model", None)
     if args.random_init:
         cfg = CONFIGS[args.random_init]
         sd = init_params(cfg, torch.Generator().manual_seed(0))
@@ -95,10 +130,14 @@ def load_policy(args, algo_cfg: dict | None = None):
         step = ckpt.latest_step(args.weights)
         if step is None:
             raise SystemExit(f"no checkpoints in {args.weights}")
-        cfg, sd = load_reference_checkpoint(ckpt.checkpoint_path(args.weights, step))
-        return load_model(cfg, sd, device=args.device), f"MAPF-GPT-ckpt-{step}"
+        path = ckpt.checkpoint_path(args.weights, step)
+        cfg, sd = load_reference_checkpoint(path)
+        size = _checked_config(cfg, model, path)
+        name = f"MAPF-GPT-{size}-ckpt" if size else f"MAPF-GPT-ckpt-{step}"
+        return load_model(cfg, sd, device=args.device), name
     if args.weights:
         cfg, sd = load_reference_checkpoint(args.weights)
+        _checked_config(cfg, model, args.weights)
         name = os.path.splitext(os.path.basename(args.weights))[0]
         return load_model(cfg, sd, device=args.device), name
     raise SystemExit("provide --weights or --random-init")
@@ -110,6 +149,8 @@ def main(argv=None):
                    help="suite dir containing maps.yaml and <suite>.yaml")
     p.add_argument("--weights", default=None,
                    help="a reference-layout .pt file or a trainer's output directory")
+    p.add_argument("--model", default=None, choices=list(CONFIGS),
+                   help="the checkpoint's size (inferred from path_to_weights)")
     p.add_argument("--random-init", default=None, choices=list(CONFIGS))
     p.add_argument("--algo", default=None,
                    help="key into the suite yaml's algorithms block")

@@ -229,8 +229,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_gpt_config.argtypes = [i] + [ctypes.POINTER(i)] * 6
     lib.fused_gpt_config.restype = i
-    lib.fused_gpt_forward.argtypes = [i, i] + [p] * 13 + [i] * 5 + [p]
+    lib.fused_gpt_forward.argtypes = [i, i] + [p] * 14 + [i] * 5 + [p]
     lib.fused_gpt_forward.restype = i
+    lib.fused_gpt_weight_maps.argtypes = [i, i] + [p] * 5
+    lib.fused_gpt_weight_maps.restype = i
+    lib.fused_gpt_weight_maps_bytes.argtypes = []
+    lib.fused_gpt_weight_maps_bytes.restype = i
     lib.fused_gpt_error_string.argtypes = [i]
     lib.fused_gpt_error_string.restype = ctypes.c_char_p
     return lib
@@ -258,6 +262,28 @@ def kernel_config(e: int = 160, n_head: int = 5) -> dict[tuple[int, int], dict[s
                        (v.value for v in vals)))
         built[(cfg["e"], cfg["h"])] = cfg
     return built
+
+
+_weight_maps_cache: dict[tuple, ctypes.Array] = {}
+
+
+def weight_maps(lib: ctypes.CDLL, w: FusedWeights) -> ctypes.Array:
+    """The TMA tensor maps of w's four weight stacks, built by the library
+    once per set of weights: a map holds only the addresses, shapes and
+    boxes, so the key (library, addresses, width, layers) names it."""
+    layers, e, _ = w.wqkv.shape
+    key = (id(lib), e, layers, w.wqkv.data_ptr(), w.wproj.data_ptr(), w.wfc.data_ptr(),
+           w.wfc2.data_ptr())
+    maps = _weight_maps_cache.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(lib.fused_gpt_weight_maps_bytes())
+        rc = lib.fused_gpt_weight_maps(e, layers, w.wqkv.data_ptr(), w.wproj.data_ptr(),
+                                       w.wfc.data_ptr(), w.wfc2.data_ptr(), maps)
+        if rc != 0:
+            raise RuntimeError("fused_gpt: the weights' tensor maps failed: "
+                               f"{lib.fused_gpt_error_string(rc).decode()} ({rc})")
+        _weight_maps_cache[key] = maps
+    return maps
 
 
 def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
@@ -297,8 +323,9 @@ def _e2e_kernel(w: FusedWeights, tokens: torch.Tensor) -> torch.Tensor:
     workspace = torch.empty((grid, cfg["ws_elems"]), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        maps = weight_maps(lib, w)
         rc = lib.fused_gpt_forward(
-            e, w.n_head, tokens.data_ptr(), w.wte.data_ptr(), w.wpe.data_ptr(),
+            e, w.n_head, maps, tokens.data_ptr(), w.wte.data_ptr(), w.wpe.data_ptr(),
             w.wht.data_ptr(), w.wqkv.data_ptr(), w.wproj.data_ptr(), w.wfc.data_ptr(),
             w.wfc2.data_ptr(), w.g1.data_ptr(), w.g2.data_ptr(), w.gf.data_ptr(),
             out.data_ptr(), workspace.data_ptr(), n, t, layers, vocab, grid, stream)

@@ -3,12 +3,15 @@
     python3 -m mapf_gpt_tpu_torch.tools.kernel_phases [--model 2M] [--n 8192] [--seed 0]
 
 Builds ``csrc/fused_gpt.cu`` as it is and in variants that each leave one
-phase out (the LN1 + q|k|v products, attention, the projection, the LN2 +
-MLP, the thinned last position), and one that issues no weight-tile copies
-into the ring (the products then read stale tiles: what streaming the
-weights from L2 costs), all with the same nvcc flags and started together,
-then times each on the same tokens with the trained weights of ``--model``
-(2M or 6M, the kernel's two default widths).  A phase's share is the full
+phase's products and epilogues out (the LN1 + q|k|v products, attention,
+the projection, the LN2 + MLP, the thinned last position: the source's
+``FUSED_GPT_SKIP`` bits, ``-DFUSED_GPT_SKIP=<bit>``; the phase's weight
+tiles still stream through the ring, so the producer and every barrier see
+the same sequence), and one whose producer issues no TMA copies of the
+weights (the products then read stale tiles: what streaming the weights
+from L2 costs), all with the same nvcc flags and started together, then
+times each on the same tokens with the trained weights of ``--model`` (2M
+or 6M, the kernel's two default widths).  A phase's share is the full
 kernel's time minus the time without it; removing a phase also changes the
 registers the compiler gives the rest, so the shares need not add up.  The
 variants' logits are wrong by construction; only their times are used.
@@ -18,8 +21,8 @@ Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -34,60 +37,50 @@ CHECKPOINTS = {
     name: os.path.normpath(os.path.join(_build.CSRC, os.pardir, os.pardir, "checkpoints", f))
     for name, f in (("2M", "MAPF-GPT-2M-r4.pt"), ("6M", "MAPF-GPT-6M-r5.pt"))}
 
-# phase -> (text that opens it, text that closes it) in the kernel body
-PHASES = {
-    "qkv": ("if (active) ln_rows(xh(hf)", "wg_active, active, ring, epi);\n"),
-    "attention": ("attention(qkv, T, kv);\n", "attention(qkv, T, kv);\n"),
-    "proj": ("proj_half(xh(hf),", "Wproj, wg_active, active, ring);\n"),
-    "mlp": ("mlp_half(xh(hf),", "g2 + l * E, active, ring);\n"),
-    "last_position": ("last_position(qkv, xh(", "out + (size_t)c * vocab);\n"),
-}
+# phase -> the name of its bit in csrc/fused_gpt.cu (constexpr int SKIP_<NAME> = <bit>)
+PHASES = {"qkv": "SKIP_QKV", "attention": "SKIP_ATTENTION", "proj": "SKIP_PROJ",
+          "mlp": "SKIP_MLP", "last_position": "SKIP_LAST"}
+WEIGHT_LOADS = "SKIP_LOADS"
 
 
-# the weight ring's copies, each found once in the pipeline (prologue, steady state)
-WEIGHT_LOADS = (("if (s < n) load(", "if (s < n && n < 0) load("),
-                ("if (j < n) load(", "if (j < n && n < 0) load("))
+def skip_bits(src: str) -> dict[str, int]:
+    """The source's SKIP_<NAME> = <bit> constants; each phase's name must be
+    declared once and tested by the code at least once."""
+    bits = {}
+    for name in (*PHASES.values(), WEIGHT_LOADS):
+        decl = re.findall(rf"\b{name} = (\d+)", src)
+        if len(decl) != 1 or not re.search(rf"SKIP & {name}\b", src):
+            raise RuntimeError(f"{name} is not declared once and tested in fused_gpt.cu")
+        bits[name] = int(decl[0])
+    if len(set(bits.values())) != len(bits) or any(b & (b - 1) for b in bits.values()):
+        raise RuntimeError(f"fused_gpt.cu's skip bits are not distinct powers of 2: {bits}")
+    return bits
 
 
-def no_weight_loads(src: str) -> str:
-    """The kernel source with the weight ring's copies never issued."""
-    for old, new in WEIGHT_LOADS:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{old!r} not found once in fused_gpt.cu")
-        src = src.replace(old, new)
-    return src
+def variant_defines(src: str) -> dict[str, dict[str, int]]:
+    """name -> the -D defines of each build: the kernel as it is ("full"),
+    each phase left out, and the weights' copies left out."""
+    bits = skip_bits(src)
+    return {"full": {}, **{p: {"FUSED_GPT_SKIP": bits[n]} for p, n in PHASES.items()},
+            "weight_loads": {"FUSED_GPT_SKIP": bits[WEIGHT_LOADS]}}
 
 
-def variant_source(src: str, phase: str) -> str:
-    """The kernel source with `phase` removed by the preprocessor."""
-    begin, end = PHASES[phase]
-    if src.count(begin) != 1 or src.count(end) != 1 or src.index(begin) > src.index(end):
-        raise RuntimeError(f"phase {phase!r} not found once in fused_gpt.cu")
-    i = src.index(begin)
-    j = src.index(end) + len(end)
-    return src[:i] + "#if 0\n" + src[i:j] + "#endif\n" + src[j:]
+def ptxas_summary(log: str) -> list[str]:
+    """ptxas' registers and spills of each kernel in a build's output."""
+    return [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
 
 
-def build_variants(out_dir: str) -> dict[str, str]:
-    src = (_build.CSRC / "fused_gpt.cu").read_text()
-    os.makedirs(out_dir, exist_ok=True)
-    sources = {"full": src, **{p: variant_source(src, p) for p in PHASES},
-               "weight_loads": no_weight_loads(src)}
-    nvcc = _build.find_nvcc()
-
-    def build(item):
-        name, text = item
-        cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"lib{name}.so")
-        with open(cu, "w") as f:
-            f.write(text)
-        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", so, cu],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n{proc.stderr}")
-        return name, so
-
-    with ThreadPoolExecutor(len(sources)) as pool:
-        return dict(pool.map(build, sources.items()))
+def build_variants() -> dict[str, object]:
+    """Each variant's library (built together), its ptxas summary printed."""
+    variants = variant_defines((_build.CSRC / "fused_gpt.cu").read_text())
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(lambda d: _build.load("fused_gpt", d),
+                                           variants.values())))
+    for name, defines in variants.items():
+        log = _build.build_log.get(" ".join(("fused_gpt",) + _build.define_flags(defines)), "")
+        for line in ptxas_summary(log):
+            print(f"  [ptxas] {name}: {line}")
+    return {name: fused_gpt.bind(lib) for name, lib in libs.items()}
 
 
 def main() -> None:
@@ -99,14 +92,13 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases: needs a CUDA GPU")
-    libs = build_variants(str(_build.BUILD_DIR / "phases"))
+    libs = build_variants()
     cfg, sd = load_reference_checkpoint(CHECKPOINTS[args.model])
     w = fused_gpt.stack_weights(load_model(cfg, sd, device="cuda"))
     tokens = torch.from_numpy(np.random.RandomState(args.seed).randint(
         0, cfg.vocab_size, size=(args.n, cfg.block_size))).to("cuda", torch.int32)
     times = {}
-    for name, path in libs.items():
-        lib = fused_gpt.bind(ctypes.CDLL(path))
+    for name, lib in libs.items():
         with mock.patch.object(fused_gpt, "_library", lambda *_: lib):
             fused_gpt.fused_logits(w, tokens)
             torch.cuda.synchronize()
@@ -129,7 +121,7 @@ def main() -> None:
               f"(kernel without it {t:.3f} ms)")
     rest = full - sum(full - t for t in times.values())
     print(f"  {'rest':14s} {rest:8.3f} ms  {100 * rest / full:5.1f} %  "
-          "(embedding, the 6M's half swaps, barriers)")
+          "(embedding, LN, the 6M's half swaps, waits)")
     print(f"  {'weight loads':14s} {full - loads:8.3f} ms  {100 * (full - loads) / full:5.1f} %  "
           f"(kernel without the ring's copies {loads:.3f} ms; across the phases above)")
 

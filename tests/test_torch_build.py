@@ -61,21 +61,41 @@ def test_library_is_keyed_by_included_headers(csrc):
 
 def test_kernel_sources_name_the_shared_attention_header():
     """attention.cu, fused_train.cu, fused_gpt.cu and fused_blocks.cu share
-    csrc/attn_tile.cuh; attention.cu, fused_blocks.cu and fused_train.cu
-    also share csrc/attn_wgmma.cuh, which reaches csrc/wgmma.cuh through
-    csrc/gemm_tile.cuh, as the layer kernels do; fused_train.cu includes
-    the training attention's backward, csrc/attn_wgmma_bwd.cuh, and the
-    backward's MLP front and LayerNorm epilogue, csrc/train_bwd_gemm.cuh;
-    fused_gpt.cu includes csrc/wgmma.cuh; each library's key follows the
+    csrc/attn_tile.cuh; all four also share csrc/attn_wgmma.cuh, which
+    reaches csrc/wgmma.cuh through csrc/gemm_tile.cuh, as the layer kernels
+    do (fused_gpt.cu includes attn_wgmma.cuh alone: its attention tile, TMA
+    and mbarrier helpers and tensor-map encoding come through it);
+    fused_train.cu includes the training attention's backward,
+    csrc/attn_wgmma_bwd.cuh, and the backward's MLP front and LayerNorm
+    epilogue, csrc/train_bwd_gemm.cuh; each library's key follows the
     headers its source includes."""
     for name in ("attention", "fused_blocks"):
         assert [p.name for p in _build.source_files(name)] == [
             f"{name}.cu", "attn_tile.cuh", "attn_wgmma.cuh", "gemm_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_gpt")] == [
-        "fused_gpt.cu", "attn_tile.cuh", "wgmma.cuh"]
+        "fused_gpt.cu", "attn_wgmma.cuh", "attn_tile.cuh", "gemm_tile.cuh", "wgmma.cuh"]
     assert [p.name for p in _build.source_files("fused_train")] == [
         "fused_train.cu", "attn_tile.cuh", "attn_wgmma.cuh", "attn_wgmma_bwd.cuh",
         "gemm_tile.cuh", "train_bwd_gemm.cuh", "wgmma.cuh"]
+
+
+def test_e2e_kernel_is_warp_specialised_on_tma_and_wgmma():
+    """csrc/fused_gpt.cu (the counterpart of _e2e_kernel) loads its weight
+    tiles by TMA (cp.async.bulk.tensor) from a producer thread, moves
+    registers to its consumers with setmaxnreg, runs its products on
+    wgmma.mma_async (the MLP's fc2 with register A) and its attention on
+    attn_wgmma.cuh's tile, and uses no WMMA, library or CUTLASS kernel."""
+    src = (_build.CSRC / "fused_gpt.cu").read_text()
+    unit = "".join(p.read_text() for p in _build.source_files("fused_gpt"))
+    for ptx in ("cp.async.bulk.tensor", "setmaxnreg", "wgmma.mma_async", "mbarrier.try_wait"):
+        assert ptx in unit, ptx
+    for call in ("gemm::tma_load(", "gemm::setmaxnreg_dec<", "gemm::setmaxnreg_inc<",
+                 "wg::Mma<NP>", "wg::Mma<FC>", "wg::MmaRs<NP>", "aw::tile<DH, bf16, true>",
+                 "gemm::make_map("):
+        assert call in src, call
+    for banned in ("wmma::", "<mma.h>", "cublas", "cuBLAS", "cutlass::", "mma_half(",
+                   "pipeline<"):
+        assert banned not in src, banned
 
 
 def test_layer_kernels_share_the_hopper_gemm():
@@ -113,15 +133,39 @@ def test_failed_build_raises_with_compiler_output(csrc, tmp_path, monkeypatch):
 
 
 def test_kernel_phase_variants_find_each_phase_once():
-    """tools/kernel_phases.py compiles each phase of the real kernel source
-    out in turn; every phase must still be found exactly once."""
+    """tools/kernel_phases.py builds the real kernel source with each
+    phase's FUSED_GPT_SKIP bit in turn; every phase's bit must be declared
+    once, tested by the code, and distinct."""
     from mapf_gpt_tpu_torch.tools import kernel_phases
 
     src = (_build.CSRC / "fused_gpt.cu").read_text()
-    for phase in kernel_phases.PHASES:
-        variant = kernel_phases.variant_source(src, phase)
-        assert variant.count("#if 0\n") == 1 and len(variant) == len(src) + len("#if 0\n#endif\n")
-    with pytest.raises(RuntimeError, match="not found once"):
-        kernel_phases.variant_source(src.replace("ln_rows(xh(hf)", "ln_rows(xh( hf)"), "qkv")
-    # the variant without weight-tile copies edits the ring's two loads
-    assert kernel_phases.no_weight_loads(src).count("&& n < 0) load(") == 2
+    bits = kernel_phases.skip_bits(src)
+    assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32]
+    variants = kernel_phases.variant_defines(src)
+    assert variants["full"] == {} and len(variants) == len(kernel_phases.PHASES) + 2
+    assert sorted(d["FUSED_GPT_SKIP"] for n, d in variants.items() if n != "full") == \
+        sorted(bits.values())
+    with pytest.raises(RuntimeError, match="not declared once and tested"):
+        kernel_phases.skip_bits(src.replace("SKIP & SKIP_MLP", "SKIP_MLP"))
+    with pytest.raises(RuntimeError, match="not declared once and tested"):
+        kernel_phases.skip_bits(src.replace("SKIP_QKV = 1", "SKIP_QKV_ = 1"))
+
+
+def test_kernel_clock_instruments_every_phase():
+    """tools/kernel_clock.py instruments a copy of the real kernel source:
+    every anchor is found as often as it expects, each phase counter is
+    placed, and a missing anchor raises before nvcc starts."""
+    from mapf_gpt_tpu_torch.tools import kernel_clock
+
+    src = (_build.CSRC / "fused_gpt.cu").read_text()
+    out = kernel_clock.instrumented(src)
+    for k in range(kernel_clock.WHOLE):
+        if k != 8:
+            assert f"CLOCK_PHASE({k});" in out, k
+    assert out.count("CLOCK_PHASE(8);") == 2
+    for k in range(kernel_clock.WHOLE, len(kernel_clock.PHASES)):
+        assert f"CLOCK_SPAN({k}, s0);" in out, k
+    assert "fused_gpt_clock" in out and len(kernel_clock.PHASES) <= 16
+    with pytest.raises(RuntimeError, match="kernel_clock: .* found 0 times"):
+        kernel_clock.instrumented(src.replace("mlp_half(xh(hf), sA, g2 + l * E, active, ring);",
+                                              "mlp_half(xh(hf), sA, g2 + l * E, active,ring);"))

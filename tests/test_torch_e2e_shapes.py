@@ -63,3 +63,55 @@ def test_cuda_plan_sends_new_shapes_to_the_e2e_kernel(monkeypatch, e, h, layers,
     assert fused_gpt.cuda_plan(e, h, layers, t) == ("e2e", "fused_gpt")
     want = {} if (e, h) == (160, 5) else {"FUSED_GPT_E": e, "FUSED_GPT_H": h}
     assert fused_gpt.e2e_defines(e, h) == want
+
+
+# The shapes the e2e kernel admitted before its Hopper rebuild, restated here
+# on their own (T from 1 to 256, head dims multiples of 16 from 16 to 128,
+# n_embd up to 256), and the outcome of cuda_plan over a grid of n_embd
+# 16-272, 1-32 heads, T from 1 to 300 and 1, 5 or 8 layers, counted and
+# digested as it stood then: the rebuilt kernel admits and refuses exactly
+# the same shapes.
+T_GRID = (1, 2, 63, 64, 65, 128, 129, 200, 255, 256, 257, 300)
+PLAN_GRID = [(e, h, t, layers) for e in range(16, 273, 8) for h in range(1, 33)
+             for t in T_GRID for layers in (1, 5, 8)]
+PLAN_COUNTS = {"no:raise": 28656, "no:e2e/fused_blocks": 8100, "ok:e2e/fused_gpt": 1260}
+PLAN_DIGEST = "569341644cf125584cadfb571c3bec4ec6e7e9f83f13364783d4e7c809424df3"
+
+
+def _admitted_before(e, h, t):
+    dh = e // h if h > 0 else 0
+    return (1 <= t <= 256 and h > 0 and e % h == 0 and dh % 16 == 0 and 16 <= dh <= 128
+            and e <= 256)
+
+
+def _plan(e, h, t, layers):
+    why = fused_gpt.e2e_unfit(e, h, t)
+    try:
+        plan = "/".join(fused_gpt.cuda_plan(e, h, layers, t))
+    except ValueError:
+        plan = "raise"
+    return f"{e},{h},{t},{layers}:{'ok' if why is None else 'no'}:{plan}"
+
+
+@pytest.mark.parametrize("t", T_GRID)
+def test_e2e_kernel_admits_exactly_the_earlier_shapes(monkeypatch, t):
+    monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
+    for e in range(16, 273, 8):
+        for h in range(1, 33):
+            admitted = _admitted_before(e, h, t)
+            assert (fused_gpt.e2e_unfit(e, h, t) is None) == admitted, (e, h, t)
+            for layers in (1, 5, 8):
+                if admitted:
+                    assert fused_gpt.cuda_plan(e, h, layers, t) == ("e2e", "fused_gpt")
+                else:
+                    assert not _plan(e, h, t, layers).endswith("fused_gpt")
+
+
+def test_cuda_plan_table_is_unchanged(monkeypatch):
+    import collections
+    import hashlib
+
+    monkeypatch.setattr(_build, "build", lambda *a, **k: pytest.fail("built"))
+    out = [_plan(*shape) for shape in PLAN_GRID]
+    assert collections.Counter(o.split(":", 1)[1] for o in out) == PLAN_COUNTS
+    assert hashlib.sha256("\n".join(out).encode()).hexdigest() == PLAN_DIGEST
