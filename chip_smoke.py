@@ -16,7 +16,12 @@ after phase 2, so that a faulty attention kernel fails within seconds:
 2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, and the
    widths of phases 7 and 8, one nvcc each, and the LaCAM* solver library
    (``dataset/_lacam_build.py``, g++), all started together; build
-   seconds and ptxas' register report.  Then (phase 2b) the layer
+   seconds and ptxas' register report; a ``[tile regs]`` line for each
+   build of the attention tile (``csrc/attn_wgmma.cuh``: attention.cu's,
+   the training forward's, the 85M stack's) with its registers, spill
+   bytes and shared-memory bytes, failing on a spill at head dims 32 and 64
+   (the stack's build at 64 may spill its earlier 80 bytes); and ptxas's
+   "Potential Performance Loss" notes (a serialised wgmma).  Then (phase 2b) the layer
    kernels' shared GEMM (``csrc/gemm_tile.cuh``, through
    ``fused_gpt_train.gemm_tile``) against an fp32 product of the same bf16
    operands in all four orientations (A K- or MN-major, B MN- or K-major),
@@ -273,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -537,6 +543,27 @@ def e2e_ptxas(log_text: str) -> list[tuple[int, int, int, int, int]]:
         if m and width:
             out.append((*width, int(m.group(1)), *spills))
             width = None
+    return out
+
+
+def tile_ptxas(log_text: str) -> list[tuple[str, str, int, int, int]]:
+    """(kernel name, its (D, type, Io) as in the mangled name, registers,
+    spill store bytes, spill load bytes) of each attn_wgmma.cuh kernel in a
+    build's ptxas output."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S*attn_wgmma_kernelILi(\d+)E(\w+?)Lb([01])E"
+                      r"NS_(\d+)(\w+?)EEEv\S*)'", line)
+        if m:
+            name = (m.group(2), "bf16" if "bfloat16" in m.group(3) else "fp16", m.group(6))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((*name, int(m.group(1)), *spills))
+            name = None
     return out
 
 
@@ -2401,6 +2428,25 @@ def main() -> int:
                 raise RuntimeError(f"e2e kernel E={e} H={h}: ptxas spills {stores} + {loads} "
                                    "bytes")
     log(f"[build] fused_blocks kernel config {fused_blocks.kernel_config()}")
+    # the attention tile's builds (csrc/attn_wgmma.cuh): attention.cu's, the
+    # training forward's (fused_train.cu) and the 85M stack's (fused_blocks.cu); no
+    # spill at head dims 32 and 64 but the stack's, whose first build spilled 80
+    # bytes and which may not spill more
+    lib = tatt._library()
+    lib.attention_wgmma_smem.argtypes = [ctypes.c_int]
+    for name in ("attention", "fused_train", "fused_blocks"):
+        for d, ty, io, regs, stores, loads in tile_ptxas(_build.build_log.get(name, "")):
+            log(f"[tile regs] {name} D={d} {ty} {io}: {regs} registers at launch, spill stores "
+                f"{stores} B, spill loads {loads} B, shared memory "
+                f"{lib.attention_wgmma_smem(int(d))} B")
+            limit = 80 if io == "BlocksIo" else 0
+            if d in ("32", "64") and (stores > limit or (not limit and loads)):
+                raise RuntimeError(f"attention tile {name} D={d} {ty}: ptxas spills {stores} + "
+                                   f"{loads} bytes")
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "Potential Performance Loss" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     # 12. the attention kernel against its plain version, first; 2b. the layer kernels' GEMM
     att_err = attention_phase(args.seed, dev)

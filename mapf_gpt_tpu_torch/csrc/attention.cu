@@ -349,6 +349,18 @@ int attention_forward(int dtype, const void* q, const void* k, const void* v, vo
   }
 }
 
+// Shared-memory bytes a block of the wgmma kernel takes at head width D, 0
+// for a width it does not take.
+int attention_wgmma_smem(int D) {
+  switch (D) {
+    case 16: return aw::Geo<16>::SMEM;
+    case 32: return aw::Geo<32>::SMEM;
+    case 48: return aw::Geo<48>::SMEM;
+    case 64: return aw::Geo<64>::SMEM;
+    default: return 0;
+  }
+}
+
 const char* attention_error_string(int code) {
   if (code == aw::ERR_NO_ENCODER)
     return "cuTensorMapEncodeTiled not found in the driver (the wgmma route's TMA)";

@@ -26,22 +26,28 @@
 //     (tile i of the CTA's sequence to warpgroup i % 2).  A tile: S = Q K^T
 //     by wgmma with both operands in shared memory, m64n256, so the scores
 //     of all 256 key slots stay in registers (128 fp32 a thread); the
-//     softmax on those accumulators; P rounded in registers and fed back as
-//     wgmma's register A operand for P V (m64nDk16, V the B operand read
-//     N-major from the tile TMA wrote); O rounded in registers, written
-//     over the warp's Q rows of the tile in shared memory (free once S is
-//     done) and stored by TMA, which clips the rows past T;
-//   * at D >= 48 the two warpgroups' softmaxes take turns (a "ticket"
-//     mbarrier: tile i's exp2s start when all four warps of tile i - 1 are
-//     done with theirs), so one warpgroup's exp2s run while the other's
-//     products and epilogue do;
+//     softmax on those accumulators (softmax_pv: the exp2s and the sums
+//     interleaved, P packed in place); P fed back as wgmma's register A
+//     operand for P V (m64nDk16, V the B operand read N-major from the tile
+//     TMA wrote), in two groups, the first under the second's packing; O
+//     rounded in registers and stored by TMA from the warpgroup's own
+//     staging rows, which clips the rows past T, so that a warpgroup frees
+//     the stage (one arrival a warp) as soon as its last P V of the pair is
+//     done;
+//   * at D >= 48 the two warpgroups' exp2s take turns (a "ticket" mbarrier:
+//     tile i's exp2s start when all four warps of tile i - 1 are done with
+//     theirs), so one warpgroup's exp2s run while the other's max pass,
+//     packing, products and epilogue do;
 //   * setmaxnreg moves registers from the producer warpgroup (24) to the
-//     consumers (240): scores 128, P 64, O up to 32 a thread.
-// On the card the tile runs well below the special-function units' rate
-// for its exp2s; PERF.md (PR 13) has what was measured and ruled out.
+//     consumers (240), but ptxas holds the consumers to 168 registers a
+//     thread here (PERF.md), which the tile is written to: scores
+//     128, O up to 32, P in the scores' registers.
+// tools/attn_clock.py splits a tile's time by phase (the AW_MARK marks).
 // Shared-memory layout: rows of RB = 2 D bytes (128 at D = 48, whose box is
 // 64 wide), swizzled by TMA at the span RB (128, 64 or 32 bytes), which the
 // wgmma descriptors name: K-major for Q (A) and K (B), N-major for V (B).
+// csrc/fused_gpt.cu inlines the tile in its layer loop (tile(): O written
+// over the tile's Q rows, its own stages).
 //
 // csrc/fused_train.cu runs the attention's arithmetic (BLOCKS = false) over
 // the layer stack's q|k|v workspace as the training forward and the
@@ -91,17 +97,50 @@ struct Geo {
   static constexpr int TILE = T_MAX * RB;             // Q, K or V of a pair
   static constexpr int STAGE = 3 * TILE;
   static constexpr int STAGES = RB == 128 ? 2 : 4;
-  // the softmaxes take turns at D >= 48, where turns ran faster on the
-  // card; at D <= 32 they ran slower
-  static constexpr bool TICKET = D >= 48;
-  static constexpr int SMEM = STAGES * STAGE + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int OUT = ROWS * RB;               // O staging rows of a tile
+  // the two warpgroups' exp2s take turns at D >= 48, where turns ran faster
+  // on the card, not below (tools/attn_ab.py, PERF.md)
+  static constexpr bool TURNS = D >= 48;
+  // the ring, an O staging buffer a consumer warpgroup, barriers
+  static constexpr int SMEM = STAGES * STAGE + 2 * OUT + (2 * STAGES + 1) * 8 + 1024;
   static constexpr unsigned SW = RB / 16 - 1;         // swizzle: 16-byte chunk ^= (row bits)
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // descriptor bits 62-63
   static constexpr CUtensorMapSwizzle MAP_SWIZZLE =
       RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                 : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 };
-static_assert(Geo<64>::SMEM <= 232448 && Geo<32>::SMEM <= 232448, "a block's shared memory");
+static_assert(Geo<64>::SMEM <= 232448 && Geo<48>::SMEM <= 232448 && Geo<32>::SMEM <= 232448 &&
+                  Geo<16>::SMEM <= 232448,
+              "a block's shared memory");
+
+// SM-clock counters of a tile's phases (tools/attn_clock.py builds with
+// -DAW_CLOCK=1): thread 0 of each consumer warpgroup adds the clocks since
+// its last mark to g_clock[k] at mark k; without AW_CLOCK the marks are empty.
+enum ClockPhase { CLK_STAGE, CLK_S, CLK_TICKET, CLK_MAX, CLK_EXP2, CLK_SUMS, CLK_PV, CLK_EPILOGUE,
+                  CLK_FREE, CLK_PHASES };
+#if AW_CLOCK
+__device__ unsigned long long g_clock[CLK_PHASES];
+// a predicated reduction, not a branch (see pass_ticket)
+__device__ __forceinline__ void clock_add(int k, long long v) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(
+          &g_clock[k]),
+      "l"(v), "r"(threadIdx.x & 127)
+      : "memory");
+}
+#define AW_CLOCK_START long long clk_t_ = clock64()
+#define AW_MARK(k)                       \
+  do {                                   \
+    const long long n_ = clock64();      \
+    clock_add(k, n_ - clk_t_);           \
+    clk_t_ = n_;                         \
+  } while (0)
+#define AW_CLOCK_RESTART clk_t_ = clock64()
+#else
+#define AW_CLOCK_START do {} while (0)
+#define AW_MARK(k) do {} while (0)
+#define AW_CLOCK_RESTART do {} while (0)
+#endif
 
 // A byte offset in a swizzled tile (from a 1024-aligned base) as TMA lays it
 // out: the 16-byte chunk index XOR the row bits above 128 bytes.
@@ -263,6 +302,17 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// Arrive at bar where `arrive`: a predicated instruction, not a branch.  A
+// branch is a divergent path to ptxas, and one among products in flight
+// makes it serialise every wgmma of the kernel.
+__device__ __forceinline__ void arrive_if(uint64_t* bar, bool arrive) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(gemm::smem_u32(bar)),
+      "r"((int)arrive)
+      : "memory");
+}
+
 // csrc/attention.cu's operands: q, k, v and o [B, H, T, D] through rank-4
 // tensor maps (D, T, H, B) built from their own strides.
 struct AttnIo {
@@ -319,179 +369,277 @@ struct TrainIo : BlocksIo {
   }
 };
 
-// One 64-row query tile t of a pair whose Q, K and V are at qs, ks, vs: S,
-// the softmax (after tile item - 1's, the ticket), P V, O out.  Every key
-// slot of the 256 takes part in the products (TMA zero-fills the rows past
-// T, and those keys are masked), so that no branch sits between two
-// products: ptxas would fence each product of a branching sequence alone.
-template <int D, typename T_, bool BLOCKS, class Io>
-__device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, int T, float c2,
-                                     unsigned char* qs, const unsigned char* ks,
-                                     const unsigned char* vs, uint64_t* ticket) {
-  using G = Geo<D>;
-  constexpr int NT = T_MAX / 8;   // n8 tiles of the scores
-  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c4 = lane & 3;
-  unsigned char* qt = qs + t * ROWS * G::RB;
+// The tile's pieces.  A 64-row query tile t of a pair whose Q, K and V are
+// at qs, ks, vs: S = Q K^T, the softmax on the accumulators, O = P V, O
+// out.  Every key slot of the 256 takes part in the products (TMA
+// zero-fills the rows past T, and those keys are masked), so that no branch
+// sits between two products: ptxas would fence each product of a branching
+// sequence alone.  The scores' (j, e) is key 8 j + 2 c4 + (e & 1) of row
+// g + 8 (e >> 1) of the warp's 16.
 
-  // S = Q K^T over all 256 key slots, the first k-slice overwriting
-  float sc[NT][4];
+constexpr int NT = T_MAX / 8;   // n8 tiles of the scores
+constexpr int NS = NT / 2;      // 16-key slices of P V
+
+// S = Q K^T of the 64 query rows at qt over all 256 key slots, issued and
+// committed (the first k-slice overwriting)
+template <int D, typename T_>
+__device__ __forceinline__ void issue_s(float (*sc)[4], const unsigned char* qt,
+                                        const unsigned char* ks) {
   wg::fence();
   Elem<T_>::template ss256<false>(sc, desc<D>(qt), desc<D>(ks));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
     Elem<T_>::template ss256<true>(sc, desc<D>(qt + 32 * kk), desc<D>(ks + 32 * kk));
   wg::commit();
-  wg::wait<0>();
-  wg::fence_operands<NT>(sc);
+}
 
-  if (Geo<D>::TICKET && item > 0) gemm::mbar_wait(ticket, (item - 1) & 1);
-  // the softmax on the accumulators: (j, e) is key 8 j + 2 c4 + (e & 1) of
-  // row g + 8 (e >> 1) of the warp's 16; keys at or past T masked
-  unsigned pa[NT / 2][4];
-  // the rows' max and sum, each over 16 accumulators [j % 4][e] so that
-  // one warp's dependency chains do not set the pace
-  float rs[4][4] = {}, sum[2], inv[2];
+// scores whose key reaches key_lim = T - 2 c4 set to v: a compare with an
+// immediate, so that no per-thread key index is held in a register (the e2e
+// kernel, which inlines this tile in its layer loop, spilled them)
+__device__ __forceinline__ void mask_keys(float (*sc)[4], int key_lim, float v) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j * 8 + (e & 1) >= key_lim) sc[j][e] = v;
+}
+
+// Slice kk's P (its A fragment, four words) is packed into the registers of
+// the slice's first n8 tile of scores, sc[2 kk], so that P takes no
+// registers beside the scores'.
+
+// e = bf16(2^min(s, 100)) of slice kk (the layer stack's), packed in place;
+// the sums add the rounded e
+template <typename T_>
+__device__ __forceinline__ void blocks_slice(float (*sc)[4], int kk, float (*rs)[4]) {
+#pragma unroll
+  for (int j = 2 * kk; j < 2 * kk + 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = ex2(fminf(sc[j][e], EXP2_CLAMP));
+  unsigned u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* f = sc[2 * kk + (i >> 1)] + 2 * (i & 1);
+    u[i] = Elem<T_>::pack(f[0], f[1]);
+    rs[kk % 4][2 * (i & 1)] += __uint_as_float(u[i] << 16);
+    rs[kk % 4][2 * (i & 1) + 1] += __uint_as_float(u[i] & 0xffff0000u);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sc[2 * kk][i] = __uint_as_float(u[i]);
+}
+
+// P of slice kk normalised and rounded (the attention's), packed in place
+template <typename T_>
+__device__ __forceinline__ void attn_slice(float (*sc)[4], int kk, const float inv[2]) {
+  const float* lo = sc[2 * kk];
+  const float* hi = sc[2 * kk + 1];
+  const unsigned u[4] = {Elem<T_>::pack(lo[0] * inv[0], lo[1] * inv[0]),
+                         Elem<T_>::pack(lo[2] * inv[1], lo[3] * inv[1]),
+                         Elem<T_>::pack(hi[0] * inv[0], hi[1] * inv[0]),
+                         Elem<T_>::pack(hi[2] * inv[1], hi[3] * inv[1])};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sc[2 * kk][i] = __uint_as_float(u[i]);
+}
+
+template <int D>
+__device__ __forceinline__ void zero_o(float (*o)[4]) {
+#pragma unroll
+  for (int n = 0; n < Geo<D>::BOX / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+}
+
+// O += P V over slices [k0, k1), P packed in place in sc, issued between
+// the fence that orders the P writes and a commit: a group of its own, so
+// that ptxas sees no write of a product's input inside a group in flight
+// (the callers' loops unroll, so that the registers are indexed by
+// constants)
+template <int D, typename T_>
+__device__ __forceinline__ void issue_pv(float (*o)[4], const float (*sc)[4],
+                                         const unsigned char* vs, int k0, int k1) {
+  wg::fence();
+#pragma unroll
+  for (int kk = k0; kk < k1; ++kk) {
+    const unsigned a[4] = {__float_as_uint(sc[2 * kk][0]), __float_as_uint(sc[2 * kk][1]),
+                           __float_as_uint(sc[2 * kk][2]), __float_as_uint(sc[2 * kk][3])};
+    Elem<T_>::template rs<Geo<D>::BOX>(o, a, desc<D>(vs + kk * 16 * Geo<D>::RB));
+  }
+  wg::commit();
+}
+
+// The turn passes once every warp of the warpgroup is past its wait: were
+// one thread to arrive alone, a warp still polling the previous phase would
+// see the next one and wait for the other warpgroup's next turn, which may
+// never come (the ticket counts 4 arrivals, one a warp).  IN_FLIGHT: P V
+// products may be in flight, so the arrival is predicated (arrive_if).
+template <bool IN_FLIGHT>
+__device__ __forceinline__ void pass_ticket(uint64_t* ticket) {
+  __syncwarp();
+  if constexpr (IN_FLIGHT)
+    arrive_if(ticket, (threadIdx.x & 31) == 0);
+  else if ((threadIdx.x & 31) == 0)
+    gemm::mbar_arrive(ticket);
+}
+
+// The softmax of the scores sc of the tile at query row row0 (tile item of
+// the CTA's sequence) and O = P V into o, waited for; inv: 1 / sum of each
+// of the thread's two rows.  ptxas lays a softmax out as blocks of one
+// instruction (128 FFMA, 128 MUFU.EX2, 128 FADD), and a warp issues in
+// order, so a block of ex2s kept its warp from anything else for 1,024
+// clocks in the tile's first schedule.  Here no branch sits between the
+// exp2s and the sums, so that each sum is issued beside a later ex2; at
+// TURNS head dims the two warpgroups' exp2s alone take turns (tile item's
+// wait for item - 1's), so that the max pass, the sums and the packing run
+// beside the other warpgroup's exp2s; P is packed in place, into the
+// registers of its first n8 tile of scores (ptxas holds the attention
+// kernels to 168 registers a thread whatever setmaxnreg gives), and P V
+// goes out in two groups of eight slices, the first under the second's
+// packing: after l for the attention, whose p is normalised before it is
+// rounded, and with the exp2s for the layer stack's, which normalises
+// after P V.
+template <int D, typename T_, bool BLOCKS, class Io>
+__device__ __forceinline__ void softmax_pv(const Io& io, int pair, int row0, int item, int T,
+                                           float c2, float (*sc)[4], const unsigned char* vs,
+                                           uint64_t* ticket, float (*o)[4], float inv[2]) {
+  using G = Geo<D>;
+  const float NEG_INF = __int_as_float(0xff800000);
+  const int c4 = threadIdx.x & 3, key_lim = T - 2 * c4;
+  const bool turns = G::TURNS && item > 0;
+  AW_CLOCK_START;
+  // the rows' sums, each over 16 accumulators [j % 4][e] so that one warp's
+  // dependency chains do not set the pace
+  float rs[4][4] = {}, sum[2];
   if constexpr (!BLOCKS) {
     // p = 2^(s c2 - m) / l with m = max(s c2), taken as max(s) |c2| over s
-    // or -s by the sign of c2: one fma and one ex2 a score.  Masked keys
-    // get an s that never wins the max, then p = 0.
+    // or -s by the sign of c2: one fma and one ex2 a score.  Masked keys get
+    // an s that never wins the max, then an exponent of -inf, p = 0.
     const bool pos = c2 >= 0.f;
-    const float NEG_INF = __int_as_float(0xff800000), FAR = pos ? NEG_INF : -NEG_INF;
-    if (T < T_MAX) {
+    if (T < T_MAX) mask_keys(sc, key_lim, pos ? NEG_INF : -NEG_INF);
+    float mx[2][4];   // by j % 2: max is exact in any order
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * 8 + 2 * c4 + (e & 1) >= T) sc[j][e] = FAR;
-    }
-    float mx[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[j][e] = pos ? sc[j][e] : -sc[j][e];
     if (pos) {
 #pragma unroll
-      for (int j = 4; j < NT; ++j)
+      for (int j = 2; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[j % 4][e] = fmaxf(mx[j % 4][e], sc[j][e]);
+        for (int e = 0; e < 4; ++e) mx[j % 2][e] = fmaxf(mx[j % 2][e], sc[j][e]);
     } else {
 #pragma unroll
-      for (int j = 4; j < NT; ++j)
+      for (int j = 2; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[j % 4][e] = fmaxf(mx[j % 4][e], -sc[j][e]);
+        for (int e = 0; e < 4; ++e) mx[j % 2][e] = fmaxf(mx[j % 2][e], -sc[j][e]);
     }
     float mr[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float(*m)[4] = mx;
-      const int a = 2 * r, b = 2 * r + 1;
-      mr[r] = quad_max(fmaxf(fmaxf(fmaxf(m[0][a], m[0][b]), fmaxf(m[1][a], m[1][b])),
-                             fmaxf(fmaxf(m[2][a], m[2][b]), fmaxf(m[3][a], m[3][b])))) *
+    for (int r = 0; r < 2; ++r)
+      mr[r] = quad_max(fmaxf(fmaxf(mx[0][2 * r], mx[0][2 * r + 1]),
+                             fmaxf(mx[1][2 * r], mx[1][2 * r + 1]))) *
               fabsf(c2);
-    }
-    const float m0 = mr[0], m1 = mr[1];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[j][e] = ex2(fmaf(sc[j][e], c2, -(e < 2 ? m0 : m1)));
-    if (T < T_MAX) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * 8 + 2 * c4 + (e & 1) >= T) sc[j][e] = 0.f;
-    }
+      for (int e = 0; e < 4; ++e) sc[j][e] = fmaf(sc[j][e], c2, -mr[e >> 1]);
+    if (T < T_MAX) mask_keys(sc, key_lim, NEG_INF);
+    AW_MARK(CLK_MAX);
+    if (turns) gemm::mbar_wait(ticket, (item - 1) & 1);
+    AW_MARK(CLK_TICKET);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) rs[j % 4][e] += sc[j][e];
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = ex2(sc[j][e]);
+        rs[j % 4][e] += sc[j][e];
+      }
+    if (G::TURNS) pass_ticket<false>(ticket);
+    AW_MARK(CLK_EXP2);
     row_sums(rs, sum, inv);
-    if constexpr (Io::STATS) io.stats(pair, t * ROWS + warp * 16, mr, sum);
-    // P as the A fragments of 16 keys (n8 tiles 2 kk and 2 kk + 1), normalised, rounded
+    if constexpr (Io::STATS) io.stats(pair, row0, mr, sum);
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      const float* lo = sc[2 * kk];
-      const float* hi = sc[2 * kk + 1];
-      pa[kk][0] = Elem<T_>::pack(lo[0] * inv[0], lo[1] * inv[0]);
-      pa[kk][1] = Elem<T_>::pack(lo[2] * inv[1], lo[3] * inv[1]);
-      pa[kk][2] = Elem<T_>::pack(hi[0] * inv[0], hi[1] * inv[0]);
-      pa[kk][3] = Elem<T_>::pack(hi[2] * inv[1], hi[3] * inv[1]);
+    for (int k0 = 0; k0 < NS; k0 += NS / 2) {
+#pragma unroll
+      for (int kk = k0; kk < k0 + NS / 2; ++kk) attn_slice<T_>(sc, kk, inv);
+      if (k0 == 0) zero_o<D>(o);
+      issue_pv<D, T_>(o, sc, vs, k0, k0 + NS / 2);
     }
   } else {
-    // e = bf16(2^min(s, 100)), rounded once by the packing; the sums add the rounded e
+    // masked keys' scores to -inf, 2^-inf = +0
+    if (T < T_MAX) mask_keys(sc, key_lim, NEG_INF);
+    if (turns) gemm::mbar_wait(ticket, (item - 1) & 1);
+    AW_MARK(CLK_TICKET);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int k0 = 0; k0 < NS; k0 += NS / 2) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = ex2(fminf(sc[j][e], EXP2_CLAMP));
-    if (T < T_MAX) {
-      // key j * 8 + 2 c4 + (e & 1) is masked when j * 8 + (e & 1) reaches
-      // key_lim: a compare with an immediate, so that no per-thread key index
-      // is held in a register (the e2e kernel, which inlines this tile in its
-      // layer loop, spilled them)
-      const int key_lim = T - 2 * c4;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * 8 + (e & 1) >= key_lim) sc[j][e] = 0.f;
+      for (int kk = k0; kk < k0 + NS / 2; ++kk) blocks_slice<T_>(sc, kk, rs);
+      if (k0 == 0) zero_o<D>(o);
+      issue_pv<D, T_>(o, sc, vs, k0, k0 + NS / 2);
+      // the turn passes with the first half's exp2s (ran faster on the card
+      // than after all of them; the attention's passes after all)
+      if (G::TURNS && k0 == 0) pass_ticket<true>(ticket);
     }
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* f = sc[2 * kk + (i >> 1)] + 2 * (i & 1);
-        const unsigned u = Elem<T_>::pack(f[0], f[1]);
-        pa[kk][i] = u;
-        rs[kk % 4][2 * (i & 1)] += __uint_as_float(u << 16);
-        rs[kk % 4][2 * (i & 1) + 1] += __uint_as_float(u & 0xffff0000u);
-      }
+    AW_MARK(CLK_EXP2);
     row_sums(rs, sum, inv);
   }
-  // the turn passes once every warp of the warpgroup is past its wait: were
-  // one thread to arrive alone, a warp still polling the previous phase
-  // would see the next one and wait for the other warpgroup's next turn,
-  // which may never come (the ticket counts 4 arrivals, one a warp)
-  if (Geo<D>::TICKET) {
-    __syncwarp();
-    if (lane == 0) gemm::mbar_arrive(ticket);
-  }
-
-  // O = P V over the 16 slices of 16 keys
-  float o[G::BOX / 8][4];
-#pragma unroll
-  for (int n = 0; n < G::BOX / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk)
-    Elem<T_>::template rs<G::BOX>(o, pa[kk], desc<D>(vs + kk * 16 * G::RB));
-  wg::commit();
+  AW_MARK(CLK_SUMS);
   wg::wait<0>();
   wg::fence_operands<G::BOX / 8>(o);
+  AW_MARK(CLK_PV);
+}
 
-  // O rounded (the layer stack's scaled by 1 / sum e first) into the warp's
-  // 16 Q rows of the tile (free once S is done) in TMA's swizzle, then one
-  // bulk store of them, which clips rows past T and columns past D
+// O rounded (the layer stack's scaled by 1 / sum e first) into the warp's
+// 16 rows of the 64 at ot (in TMA's swizzle), then one bulk store of them
+// to their rows of the tile at query row row0, which clips rows past T and
+// columns past D
+template <int D, typename T_, bool BLOCKS, class Io>
+__device__ __forceinline__ void store_o(const Io& io, int pair, int row0, const float (*o)[4],
+                                        const float inv[2], unsigned char* ot) {
+  using G = Geo<D>;
+  const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c4 = lane & 3;
   const float on0 = BLOCKS ? inv[0] : 1.f, on1 = BLOCKS ? inv[1] : 1.f;
 #pragma unroll
   for (int n = 0; n < G::BOX / 8; ++n) {
     const unsigned off = (warp * 16 + g) * G::RB + n * 16 + c4 * 4;
-    *reinterpret_cast<unsigned*>(qt + swz<D>(off)) =
-        Elem<T_>::pack(o[n][0] * on0, o[n][1] * on0);
-    *reinterpret_cast<unsigned*>(qt + swz<D>(off + 8 * G::RB)) =
+    *reinterpret_cast<unsigned*>(ot + swz<D>(off)) = Elem<T_>::pack(o[n][0] * on0, o[n][1] * on0);
+    *reinterpret_cast<unsigned*>(ot + swz<D>(off + 8 * G::RB)) =
         Elem<T_>::pack(o[n][2] * on1, o[n][3] * on1);
   }
   wg::fence_proxy();
   __syncwarp();
   if (lane == 0) {
-    io.store(pair, t * ROWS + warp * 16, qt + warp * 16 * G::RB);
+    io.store(pair, row0 + warp * 16, ot + warp * 16 * G::RB);
     gemm::bulk_commit();
   }
 }
 
+// One 64-row query tile in one go, O written over the tile's Q rows (free
+// once S is done): the layer loop of csrc/fused_gpt.cu calls it.
+template <int D, typename T_, bool BLOCKS, class Io>
+__device__ __forceinline__ void tile(const Io& io, int pair, int t, int item, int T, float c2,
+                                     unsigned char* qs, const unsigned char* ks,
+                                     const unsigned char* vs, uint64_t* ticket) {
+  unsigned char* qt = qs + t * ROWS * Geo<D>::RB;
+  const int row0 = t * ROWS + ((threadIdx.x & 127) >> 5) * 16;
+  AW_CLOCK_START;
+  float sc[NT][4], o[Geo<D>::BOX / 8][4], inv[2];
+  issue_s<D, T_>(sc, qt, ks);
+  wg::wait<0>();
+  wg::fence_operands<NT>(sc);
+  AW_MARK(CLK_S);
+  softmax_pv<D, T_, BLOCKS>(io, pair, row0, item, T, c2, sc, vs, ticket, o, inv);
+  AW_CLOCK_RESTART;
+  store_o<D, T_, BLOCKS>(io, pair, t * ROWS, o, inv, qt);
+  AW_MARK(CLK_EPILOGUE);
+}
+
 // The persistent kernel: `pairs` (batch or context, head) pairs of T keys;
 // c2 = scale * log2(e) for the attention (unused by the layer stack's).
+// The CTA's query tiles form one sequence (tile t of its j-th pair is item
+// j nt + t); warpgroup wg takes items wg, wg + 2, ...  O goes out through
+// the warpgroup's own staging rows, not over Q, so a warpgroup frees a
+// stage (one arrival a warp) as soon as its last P V of the pair is done,
+// and the producer loads the next pair there while the epilogue runs; a
+// warpgroup with no tile in a pair (one tile a pair, T <= 64) frees it once
+// it is full.
 template <int D, typename T_, bool BLOCKS, class Io>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_wgmma_kernel(const __grid_constant__ Io io, int pairs, int T, float c2) {
@@ -499,16 +647,17 @@ attn_wgmma_kernel(const __grid_constant__ Io io, int pairs, int T, float c2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES * G::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES * G::STAGE + 2 * G::OUT);
   uint64_t* empty = full + G::STAGES;
   uint64_t* ticket = empty + G::STAGES;
-  const int wg = threadIdx.x >> 7;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
   const int nt = (T + ROWS - 1) / ROWS;   // query tiles of a pair
+  const int np = (pairs - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;   // CTA's pairs
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < G::STAGES; ++s) {
       gemm::mbar_init(&full[s], 1);
-      gemm::mbar_init(&empty[s], 2);   // each consumer warpgroup frees the stage
+      gemm::mbar_init(&empty[s], 8);   // a consumer warp's arrival each
     }
     gemm::mbar_init(ticket, 4);   // a warpgroup's warps
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -519,34 +668,52 @@ attn_wgmma_kernel(const __grid_constant__ Io io, int pairs, int T, float c2) {
     // producer: one thread keeps the ring full
     gemm::setmaxnreg_dec<PRODUCER_REGS>();
     if ((threadIdx.x & 127) != 0) return;
-    const unsigned bytes = 3u * G::TILE;
-    for (int pair = blockIdx.x, j = 0; pair < pairs; pair += gridDim.x, ++j) {
+    for (int j = 0; j < np; ++j) {
       const int s = j % G::STAGES;
       gemm::mbar_wait(&empty[s], ((j / G::STAGES) & 1) ^ 1);
-      gemm::mbar_expect_tx(&full[s], bytes);
-      io.load(pair, smem + s * G::STAGE, G::TILE, &full[s]);
+      gemm::mbar_expect_tx(&full[s], 3u * G::TILE);
+      io.load(blockIdx.x + j * gridDim.x, smem + s * G::STAGE, G::TILE, &full[s]);
     }
     return;
   }
 
-  // consumers: warpgroup wg takes the CTA's tiles wg, wg + 2, ...
+  // consumers
   gemm::setmaxnreg_inc<CONSUMER_REGS>();
-  int item = 0;
-  for (int pair = blockIdx.x, j = 0; pair < pairs; pair += gridDim.x, ++j) {
+  unsigned char* ot = smem + G::STAGES * G::STAGE + wg * G::OUT;   // O staging rows
+  // a warp's arrival at the stage's empty barrier, once its P V are done
+  auto free_stage = [&](int s) {
+    __syncwarp();
+    if (lane == 0) gemm::mbar_arrive(&empty[s]);
+  };
+  int item = 0;   // the CTA's tiles before this pair's
+  AW_CLOCK_START;
+  for (int pair = blockIdx.x, j = 0; pair < pairs; pair += gridDim.x, ++j, item += nt) {
     const int s = j % G::STAGES;
-    gemm::mbar_wait(&full[s], (j / G::STAGES) & 1);
     unsigned char* qs = smem + s * G::STAGE;
-    for (int t = 0; t < nt; ++t, ++item)
-      if ((item & 1) == wg)
-        tile<D, T_, BLOCKS>(io, pair, t, item, T, c2, qs, qs + G::TILE, qs + 2 * G::TILE, ticket);
-    // the stage's O stores have read it, and its O writes come before TMA's
-    // next writes there; then free it
-    if ((threadIdx.x & 31) == 0) gemm::bulk_wait<true>();
-    wg::fence_proxy();
-    gemm::wg_barrier(1 + wg);
-    if ((threadIdx.x & 127) == 0) gemm::mbar_arrive(&empty[s]);
+    gemm::mbar_wait(&full[s], (j / G::STAGES) & 1);
+    AW_MARK(CLK_STAGE);
+    const int t0 = (item & 1) == wg ? 0 : 1;   // this warpgroup's first tile of the pair
+    for (int t = t0; t < nt; t += 2) {
+      AW_CLOCK_RESTART;
+      float sc[NT][4], o[G::BOX / 8][4], inv[2];
+      issue_s<D, T_>(sc, qs + t * ROWS * G::RB, qs + G::TILE);
+      wg::wait<0>();
+      wg::fence_operands<NT>(sc);
+      AW_MARK(CLK_S);
+      softmax_pv<D, T_, BLOCKS>(io, pair, t * ROWS + ((threadIdx.x & 127) >> 5) * 16,
+                                      item + t, T, c2, sc, qs + 2 * G::TILE, ticket, o, inv);
+      AW_CLOCK_RESTART;
+      if (t + 2 >= nt) free_stage(s);   // the warpgroup's last P V of the pair
+      AW_MARK(CLK_FREE);
+      // the staging rows' previous store has read them
+      if (lane == 0) gemm::bulk_wait<true>();
+      __syncwarp();
+      store_o<D, T_, BLOCKS>(io, pair, t * ROWS, o, inv, ot);
+      AW_MARK(CLK_EPILOGUE);
+    }
+    if (t0 >= nt) free_stage(s);   // no tile of this warpgroup in the pair
   }
-  if ((threadIdx.x & 31) == 0) gemm::bulk_wait<false>();   // the last stores have landed
+  if (lane == 0) gemm::bulk_wait<false>();   // the last stores have landed
 }
 
 // ------------------------------------------------------------------ host side
@@ -662,3 +829,15 @@ int train_attention(const bf16* qkv, bf16* att, float* m, float* l, int nc, int 
 #undef AW_RS
 
 }  // namespace aw
+
+#if AW_CLOCK
+// tools/attn_clock.py's readout: the counters into out[aw::CLK_PHASES], then zeroed if reset
+extern "C" int aw_clock_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, aw::g_clock, sizeof(aw::g_clock));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[aw::CLK_PHASES] = {};
+    err = cudaMemcpyToSymbol(aw::g_clock, zero, sizeof(zero));
+  }
+  return err == cudaSuccess ? (int)cudaDeviceSynchronize() : (int)err;
+}
+#endif

@@ -17,9 +17,13 @@ Builds two probe kernels (written out below, compiled with ``nvcc`` into
 - the issue rate of straight-line code against its size: a loop whose body
   is N independent max/multiply steps, the body's SASS size taken from
   ``cuobjdump``, with one and two warps a sub-partition;
+- the rate of single instructions the softmax is made of (``ex2``, the
+  bf16 pack ``cvt.rn.bf16x2.f32``, ``max``, ``mul``, ``fma``) at four warps
+  a sub-partition;
 - the SASS size of ``csrc/attn_wgmma.cuh``'s kernels in
   ``libattention`` and ``libfused_blocks`` (instructions, and the ``ex2``
-  among them), which a tile runs once each;
+  among them), which a tile runs once each, and the opcode mix of the
+  attention's at head dims 32 and 64;
 - (alone with ``--regs``) ptxas's registers and spills of the training
   attention's kernels in ``csrc/fused_train.cu`` (the wgmma forward
   through TrainIo, ``csrc/attn_wgmma_bwd.cuh``'s two backward kernels and
@@ -37,6 +41,7 @@ Builds two probe kernels (written out below, compiled with ``nvcc`` into
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import re
@@ -140,6 +145,49 @@ extern "C" int probe_softmax(float* out, long long* clk, int threads, int iters)
   softmax<<<132, threads>>>(out, clk, iters, 0.18f);
   return (int)cudaGetLastError();
 }
+// one instruction's rate: 16 independent chains a thread of op OP (0 ex2, 1
+// cvt.rn.bf16x2.f32, 2 fmax, 3 fmul, 4 fma), looped
+template <int OP>
+__global__ void rate(float* out, long long* clk, int iters) {
+  float x[16];
+  for (int i = 0; i < 16; ++i) x[i] = out[(threadIdx.x + i) % 64] * 0.01f;
+  const float y = out[65], z = out[66];
+  const long long c0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (OP == 0) {
+        x[i] = ex2(x[i]);
+      } else if (OP == 1) {
+        unsigned u;
+        asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(x[i]), "f"(y));
+        x[i] = __uint_as_float(u);
+      } else if (OP == 2) {
+        x[i] = fmaxf(x[i], y);
+      } else if (OP == 3) {
+        x[i] = x[i] * y;
+      } else {
+        x[i] = fmaf(x[i], y, z);
+      }
+    }
+  }
+  const long long c1 = clock64();
+  float t = 0;
+  for (int i = 0; i < 16; ++i) t += x[i];
+  out[100 + blockIdx.x * blockDim.x + threadIdx.x] = t;
+  if (threadIdx.x == 0 && blockIdx.x == 0) clk[0] = c1 - c0;
+}
+extern "C" int probe_rate(int op, float* out, long long* clk, int iters) {
+  switch (op) {
+    case 0: rate<0><<<132, 512>>>(out, clk, iters); break;
+    case 1: rate<1><<<132, 512>>>(out, clk, iters); break;
+    case 2: rate<2><<<132, 512>>>(out, clk, iters); break;
+    case 3: rate<3><<<132, 512>>>(out, clk, iters); break;
+    case 4: rate<4><<<132, 512>>>(out, clk, iters); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
 #define SIZES(X) X(128) X(256) X(384) X(512) X(768) X(1024) X(1536)
 extern "C" int probe_soft(float* out, long long* clk, int threads, int iters) {
   soft<128><<<132, threads>>>(out, clk, iters, 0.5f);
@@ -155,6 +203,7 @@ extern "C" int probe_straight(int n, float* out, long long* clk, int threads, in
 }
 """
 SIZES = (128, 256, 384, 512, 768, 1024, 1536)
+RATES = ("ex2.approx.ftz.f32", "cvt.rn.bf16x2.f32", "max.f32", "mul.f32", "fma.rn.f32")
 WIDE_HEADS = (80, 96, 112, 128)
 
 
@@ -169,8 +218,9 @@ def wide_source() -> str:
         acc = ", ".join(f'"+f"(d[{i // 4}][{i % 4}])' for i in range(n))
         parts.append(f"""template <> struct Geo<{d}> {{
   static constexpr int RB = {2 * d}, BOX = {d}, TILE = T_MAX * RB, STAGE = 3 * TILE, STAGES = 1;
-  static constexpr bool TICKET = true;
-  static constexpr int SMEM = STAGE + 3 * 8 + 1024;
+  static constexpr int OUT = ROWS * RB;
+  static constexpr bool TURNS = true;
+  static constexpr int SMEM = STAGE + 2 * OUT + 3 * 8 + 1024;
   static constexpr unsigned SW = 0;
   static constexpr uint64_t LAYOUT = 0;
   static constexpr CUtensorMapSwizzle MAP_SWIZZLE = CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -226,6 +276,18 @@ def sass_sizes(lib: Path) -> dict[str, tuple[int, int]]:
         sizes[fn.split("\n")[0].strip()] = (len(re.findall(r"/\*[0-9a-f]{4}\*/", body)),
                                             body.count("MUFU.EX2"))
     return sizes
+
+
+def opcode_mix(lib: Path) -> dict[str, collections.Counter]:
+    """Each function's SASS opcodes (the mnemonic before the first '.'), counted."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    mixes = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", fn)
+        mixes[fn.split("\n")[0].strip()] = collections.Counter(ops)
+    return mixes
 
 
 def wide_registers() -> None:
@@ -340,11 +402,22 @@ def main() -> None:
             print(f"[probe] straight-line body of {body} instructions ({body * 16 / 1024:.1f} KB), "
                   f"{threads // 128} warp(s) a sub-partition: "
                   f"{clk.item() / (iters * body):.2f} clocks an instruction a warp")
+    lib.probe_rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    for op, name in enumerate(RATES):
+        lib.probe_rate(op, out.data_ptr(), clk.data_ptr(), 100)
+        torch.cuda.synchronize()
+        print(f"[probe] {name} at 4 warps a sub-partition, 16 chains a thread: "
+              f"{512 * 16 * 100 / clk.item():.1f} a clock an SM")
     for name in ("attention", "fused_blocks"):
-        for fn, (n, ex2) in sorted(sass_sizes(_build.build(name)).items()):
+        lib_path = _build.build(name)
+        for fn, (n, ex2) in sorted(sass_sizes(lib_path).items()):
             if "attn_wgmma_kernel" in fn:
                 print(f"[probe] {name} {fn[:72]}: {n} instructions ({n * 16 / 1024:.1f} KB), "
                       f"{ex2} MUFU.EX2")
+        for fn, mix in sorted(opcode_mix(lib_path).items()):
+            if "attn_wgmma_kernel" in fn and ("Li32E13" in fn or "Li64E13" in fn):
+                print(f"[probe] {name} {fn[:72]} opcodes: " +
+                      ", ".join(f"{op} {n}" for op, n in mix.most_common(16)))
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ JAX package, and the wrappers' shape and stride checks.
   and the difference rounded once as an fma rounds them, l = sum p, p * (1
   / l) rounded to the element type, P V in fp32, rounded) or the layer
   stack's (``_block_kernel``: e = bf16(2^min(s, 100)), the sum of the
-  rounded e, bf16((e V) * (1 / sum e))).
+  rounded e, bf16((e V) * (1 / sum e))).  Each row's sum is taken in the
+  kernel's fp32 order (``row_sums``: a thread's partial sums, then the
+  quad's), and P V is added slice by slice (``slice_pv``), as the kernel
+  issues it a group of slices at a time while P is packed.
 - The attention's emulation is held against ``attention_einsum`` and JAX
   ``attention_pallas`` in interpret mode (as ``tests/test_attention.py``
   runs it), the layer stack's against ``fused_blocks.attention_reference``
@@ -41,6 +44,39 @@ from mapf_gpt_tpu_torch.ops import fused_blocks
 
 LOG2E = np.float32(1.4426950408889634)
 T_MAX, ROWS = 256, 64
+NT, NS = T_MAX // 8, T_MAX // 16   # n8 tiles of the scores, 16-key slices
+
+
+def row_sums(x, blocks=False):
+    """Each row's sum of x [..., 256] in fp32 in the kernel's order (the
+    tile's row_sums): a thread (c4) holds keys 8 j + 2 c4 + c (c = 0, 1) and
+    adds them into four partial sums by n8 tile j % 4 (the attention's) or
+    by 16-key slice kk % 4, slice kk's two n8 tiles in turn (the layer
+    stack's, as each slice is packed); then ((s0 + s0') + (s1 + s1')) + ((s2
+    + s2') + (s3 + s3')) a thread, and the quad's four as (t0 + t1) + (t2 +
+    t3)."""
+    xs = x.reshape(*x.shape[:-1], NT, 4, 2)              # [..., j, c4, c]
+    parts = []
+    for m in range(4):
+        js = ([j for kk in range(m, NS, 4) for j in (2 * kk, 2 * kk + 1)] if blocks
+              else list(range(m, NT, 4)))
+        acc = xs[..., js[0], :, :]
+        for j in js[1:]:
+            acc = acc + xs[..., j, :, :]
+        parts.append(acc)
+    t = (((parts[0][..., 0] + parts[0][..., 1]) + (parts[1][..., 0] + parts[1][..., 1]))
+         + ((parts[2][..., 0] + parts[2][..., 1]) + (parts[3][..., 0] + parts[3][..., 1])))
+    return ((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))[..., None]
+
+
+def slice_pv(p, v):
+    """P V in fp32 over the 16 slices of 16 keys, added in slice order, as
+    the kernel's wgmma products accumulate (whether issued at once or a
+    group at a time as P is packed)."""
+    o = p[..., :16] @ v[:, :16]
+    for kk in range(1, NS):
+        o = o + p[..., 16 * kk:16 * kk + 16] @ v[:, 16 * kk:16 * kk + 16]
+    return o
 
 
 def emulate_wgmma(q, k, v, scale, blocks=False):
@@ -60,15 +96,15 @@ def emulate_wgmma(q, k, v, scale, blocks=False):
         if blocks:
             e = torch.exp2(s.clamp(max=100.0)).to(dtype)
             e[..., masked] = 0
-            inv = 1.0 / e.float().sum(-1, keepdim=True)
-            o = (e.float() @ vp) * inv
+            inv = 1.0 / row_sums(e.float(), blocks=True)
+            o = slice_pv(e.float(), vp) * inv
         else:
             s = s.masked_fill(masked, -np.inf)
             m = s.amax(-1, keepdim=True) * abs(c2)
             x = (s.double() * float(c2) - m.double()).float()   # one rounding, as fmaf
             p = torch.exp2(x).masked_fill(masked, 0.0)
-            inv = 1.0 / p.sum(-1, keepdim=True)
-            o = (p * inv).to(dtype).float() @ vp
+            inv = 1.0 / row_sums(p)
+            o = slice_pv((p * inv).to(dtype).float(), vp)
         out[:, t0:t0 + ROWS] = o.to(dtype)
     return out
 

@@ -169,3 +169,42 @@ def test_kernel_clock_instruments_every_phase():
     with pytest.raises(RuntimeError, match="kernel_clock: .* found 0 times"):
         kernel_clock.instrumented(src.replace("mlp_half(xh(hf), sA, g2 + l * E, active, ring);",
                                               "mlp_half(xh(hf), sA, g2 + l * E, active,ring);"))
+
+
+def test_attention_tile_is_on_tma_setmaxnreg_and_wgmma():
+    """csrc/attn_wgmma.cuh (the attention forward of attention.cu,
+    fused_blocks.cu, fused_train.cu and the e2e kernel) loads by TMA
+    (cp.async.bulk.tensor) from a producer thread, moves registers with
+    setmaxnreg, runs S and P V on wgmma.mma_async, and uses no WMMA, library
+    or CUTLASS kernel; every tile goes through its one softmax (softmax_pv),
+    whose P V goes out in two groups and whose turns pass once a warp."""
+    src = (_build.CSRC / "attn_wgmma.cuh").read_text()
+    for ptx in ("cp.async.bulk.tensor", "wgmma.mma_async", "mbarrier.arrive"):
+        assert ptx in src, ptx
+    for call in ("gemm::setmaxnreg_dec<PRODUCER_REGS>()", "gemm::setmaxnreg_inc<CONSUMER_REGS>()",
+                 "softmax_pv<D, T_, BLOCKS>(", "issue_pv<D, T_>(o, sc, vs, k0, k0 + NS / 2)",
+                 "pass_ticket<false>(ticket)", "pass_ticket<true>(ticket)"):
+        assert call in src, call
+    assert src.count("softmax_pv<D, T_, BLOCKS>(") == 2   # the kernel's tiles and tile()'s
+    for banned in ("wmma::", "<mma.h>", "cublas", "cuBLAS", "cutlass::"):
+        assert banned not in src, banned
+
+
+def test_attn_clock_marks_every_phase():
+    """tools/attn_clock.py reads csrc/attn_wgmma.cuh's clock counters by the
+    header's ClockPhase order; every phase is marked in the header, and the
+    marks compile to nothing unless AW_CLOCK is defined."""
+    import re
+
+    from mapf_gpt_tpu_torch.tools import attn_clock
+
+    src = (_build.CSRC / "attn_wgmma.cuh").read_text()
+    phases = re.search(r"enum ClockPhase \{([^}]*)\}", src)[1].replace(" ", "").split(",")
+    assert phases[-1].strip() == "CLK_PHASES"
+    phases = [p.strip() for p in phases[:-1]]
+    assert len(phases) == len(attn_clock.PHASES)
+    for p in phases:
+        assert f"AW_MARK({p});" in src, p
+    assert re.search(r"#else\s*\n#define AW_CLOCK_START do \{\} while \(0\)\s*\n"
+                     r"#define AW_MARK\(k\) do \{\} while \(0\)", src)
+    assert 'extern "C" int aw_clock_read(' in src

@@ -7,8 +7,9 @@ package, the route, and the wrappers' checks.
   keys zero-padded to 256 (TMA's zero fill), queries in 64-row tiles, the
   scores of all 256 key slots in fp32, keys at or past T masked; m =
   max(s) c2 (c2 = scale log2(e)), p = 2^(s c2 - m) with the product and the
-  difference rounded once (an fma), l = sum p, bf16(p / l) V in fp32,
-  rounded.
+  difference rounded once (an fma), l = sum p in the kernel's fp32 order
+  (``_row_sums``), bf16(p / l) V in fp32 added 16-key slice by slice
+  (``_slice_pv``), rounded.
 - ``emulate_bwd`` repeats the backward's two kernels from those
   statistics: lse = m + log2(l); delta = rowsum(dA * att) in fp32 (the
   forward's bf16 att, not JAX's sum over the keys of dp * p); the query
@@ -69,6 +70,32 @@ def _pad(x):
     return torch.cat([x, torch.zeros((p_, T_MAX - t, d), dtype=x.dtype)], 1).float()
 
 
+def _row_sums(x):
+    """Each row's sum of x [..., 256] in the forward's fp32 order: a thread
+    (c4) adds its keys 8 j + 2 c4 + c into partial sums by j % 4, then ((s0 +
+    s0') + (s1 + s1')) + ((s2 + s2') + (s3 + s3')), and the quad's four as
+    (t0 + t1) + (t2 + t3) (csrc/attn_wgmma.cuh's row_sums)."""
+    xs = x.reshape(*x.shape[:-1], T_MAX // 8, 4, 2)      # [..., j, c4, c]
+    parts = []
+    for m in range(4):
+        acc = xs[..., m, :, :]
+        for j in range(m + 4, T_MAX // 8, 4):
+            acc = acc + xs[..., j, :, :]
+        parts.append(acc)
+    t = (((parts[0][..., 0] + parts[0][..., 1]) + (parts[1][..., 0] + parts[1][..., 1]))
+         + ((parts[2][..., 0] + parts[2][..., 1]) + (parts[3][..., 0] + parts[3][..., 1])))
+    return ((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))[..., None]
+
+
+def _slice_pv(p, v):
+    """P V in fp32 over 16-key slices added in order, as the forward's
+    wgmma products accumulate."""
+    o = p[..., :16] @ v[:, :16]
+    for k0 in range(16, T_MAX, 16):
+        o = o + p[..., k0:k0 + 16] @ v[:, k0:k0 + 16]
+    return o
+
+
 def emulate_fwd(q, k, v, scale):
     """The forward with statistics on [P, T, D] bf16 -> (att bf16, m, l)."""
     p_, t, d = q.shape
@@ -83,8 +110,8 @@ def emulate_fwd(q, k, v, scale):
         s = s.masked_fill(masked, -np.inf)
         mt = s.amax(-1, keepdim=True) * c2
         p = torch.exp2(_fma(s, c2, -mt)).masked_fill(masked, 0.0)
-        lt = p.sum(-1, keepdim=True)
-        att[:, t0:t0 + ROWS] = ((p * (1.0 / lt)).to(BF16).float() @ vp).to(BF16)
+        lt = _row_sums(p)
+        att[:, t0:t0 + ROWS] = _slice_pv((p * (1.0 / lt)).to(BF16).float(), vp).to(BF16)
         m[:, t0:t0 + ROWS], l[:, t0:t0 + ROWS] = mt[..., 0], lt[..., 0]
     return att, m, l
 
