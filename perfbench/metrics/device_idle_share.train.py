@@ -1,0 +1,10 @@
+"""device_idle_share.train (%): the share of the training window in which no
+operation ran on the device (1 minus the union of the device's operation
+intervals over the window).  Layer: the device under
+``train/train_step.make_train_step``.  Moves ``train_samples_per_s``."""
+
+
+def read(trace):
+    if not trace.kernels or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s() / trace.window_s)
