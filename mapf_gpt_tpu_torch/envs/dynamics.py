@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mapf_gpt_tpu_torch.ops.vocab import MOVES
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 def propose_moves(grid: torch.Tensor, pos: torch.Tensor, actions: torch.Tensor,
@@ -76,11 +77,11 @@ def resolve_collisions(pos: torch.Tensor, desired: torch.Tensor,
         revert = moving & (vertex | swap)
         return torch.where(revert[..., None], pos, des)
 
-    des = round_fn(desired)
-    changed = bool((des != desired).any())
+    des, changed = desired, True
     while changed:
-        new = round_fn(des)
-        changed = bool((new != des).any())
+        with span("mapf.env.arbiter_round"):       # the round and its flag read
+            new = round_fn(des)
+            changed = bool((new != des).any())
         des = new
     return des
 

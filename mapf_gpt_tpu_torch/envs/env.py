@@ -30,6 +30,7 @@ import torch
 from mapf_gpt_tpu_torch.envs.dynamics import step_positions
 from mapf_gpt_tpu_torch.ops.cost2go import INF, cost2go_device, goal_seed, relax_fixpoint
 from mapf_gpt_tpu_torch.ops.vocab import NUM_PREV_ACTIONS
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 class EnvState(NamedTuple):
@@ -77,6 +78,7 @@ def _fields(grids: torch.Tensor, goals: torch.Tensor, chunk: int = 0) -> torch.T
                       for i in range(0, b * n, chunk)]).reshape(b, n, h, w)
 
 
+@span("mapf.env.reset")
 def reset(spec: MapfEnvSpec, grids, starts, goals, active,
           device: str | torch.device = "cuda") -> EnvState:
     """Build the initial state and the cost2go fields on `device`.
@@ -149,6 +151,7 @@ def _relax_changed(state: EnvState, changed: torch.Tensor, new_goal: torch.Tenso
     return torch.where(dist >= INF, -1, dist).to(torch.int32).reshape(b, a, 1, h, w)
 
 
+@span("mapf.env.step")
 def step(spec: MapfEnvSpec, state: EnvState, actions: torch.Tensor) -> EnvState:
     """One environment transition. actions: int [B, A] in 0..4."""
     frozen = state.done | (state.t >= spec.max_episode_steps)       # [B]

@@ -39,6 +39,7 @@ from torch import nn
 from mapf_gpt_tpu_torch.ops.attention import attention, attention_einsum
 from mapf_gpt_tpu_torch.ops.fused_gpt import fused_logits, jax_index, stack_weights
 from mapf_gpt_tpu_torch.ops.vocab import CONTEXT_SIZE, NUM_ACTIONS, VOCAB_SIZE
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -221,6 +222,7 @@ def make_forward(model: GPT, use_fused: bool | None = None):
     else:
         forward = model
 
+    @span("mapf.policy.forward")
     def run(tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return forward(tokens)
@@ -256,6 +258,7 @@ def action_logits(logits: torch.Tensor) -> torch.Tensor:
     return logits[..., :NUM_ACTIONS]
 
 
+@span("mapf.policy.act")
 def act(logits: torch.Tensor, generator: torch.Generator | None = None,
         do_sample: bool = True) -> torch.Tensor:
     """Sample (or argmax) actions from last-position logits [N, vocab].

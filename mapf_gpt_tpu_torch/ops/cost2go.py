@@ -31,6 +31,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from mapf_gpt_tpu_torch.utils.profiling import span
+
 INF = 1 << 20  # internal "unreached" marker during relaxation
 # Offset between runs of free cells in a sweep: more than any d - j within a
 # run (d <= INF, j < the grid's side), so an earlier run's keys are all larger.
@@ -102,11 +104,11 @@ def relax_fixpoint(dist0: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
                 dist = _sweep(dist, f, offset, axis)
         return dist
 
-    dist = relax_round(dist0)
-    changed = bool((dist != dist0).any())
+    dist, changed = dist0, True
     while changed:
-        new = relax_round(dist)
-        changed = bool((new != dist).any())
+        with span("mapf.cost2go.relax_round"):     # the four sweeps and the flag read
+            new = relax_round(dist)
+            changed = bool((new != dist).any())
         dist = new
     return dist
 

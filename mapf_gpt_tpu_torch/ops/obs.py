@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from mapf_gpt_tpu_torch.ops import vocab as V
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 def _c2g_windows(c2g: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -89,6 +90,7 @@ def _neighbor_indices(pos: torch.Tensor, active: torch.Tensor):
     return idx, valid
 
 
+@span("mapf.obs.observe")
 def observe(c2g: torch.Tensor, pos: torch.Tensor, goal: torch.Tensor,
             hist: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Tokenize a batch of env instances.

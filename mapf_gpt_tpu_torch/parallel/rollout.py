@@ -26,6 +26,7 @@ from mapf_gpt_tpu_torch.envs.metrics import EpisodeMetrics, episode_metrics
 from mapf_gpt_tpu_torch.models.gpt import GPT, act, make_forward
 from mapf_gpt_tpu_torch.ops.masking import MaskConfig, apply_masks
 from mapf_gpt_tpu_torch.ops.obs import observe
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 def _tokens_of(state: menv.EnvState, mask_cfg: MaskConfig | None = None) -> torch.Tensor:
@@ -75,9 +76,10 @@ def make_batch_rollout(spec: menv.MapfEnvSpec, model: GPT, do_sample: bool = Tru
             ) -> tuple[menv.EnvState, EpisodeMetrics]:
         b, a = states.pos.shape[:2]
         for _ in range(spec.max_episode_steps):
-            logits = policy(_tokens_of(states, mask_cfg).reshape(b * a, -1))
-            actions = act(logits, generator, do_sample=do_sample)
-            states = menv.step(spec, states, actions.reshape(b, a))
+            with span("mapf.rollout.step"):
+                logits = policy(_tokens_of(states, mask_cfg).reshape(b * a, -1))
+                actions = act(logits, generator, do_sample=do_sample)
+                states = menv.step(spec, states, actions.reshape(b, a))
         return states, episode_metrics(states)
 
     return run
@@ -104,9 +106,10 @@ def make_recorded_rollout(spec: menv.MapfEnvSpec, model: GPT, do_sample: bool = 
     def run(state: menv.EnvState, generator: torch.Generator | None = None):
         positions = [state.pos[0]]
         for _ in range(spec.max_episode_steps):
-            logits = forward(_tokens_of(state, mask_cfg)[0])
-            actions = act(logits, generator, do_sample=do_sample)
-            state = menv.step(spec, state, actions[None])
+            with span("mapf.rollout.step"):
+                logits = forward(_tokens_of(state, mask_cfg)[0])
+                actions = act(logits, generator, do_sample=do_sample)
+                state = menv.step(spec, state, actions[None])
             positions.append(state.pos[0])
         return state, episode_metrics(state), torch.stack(positions)
 

@@ -19,6 +19,8 @@ from typing import Iterator
 
 import numpy as np
 
+from mapf_gpt_tpu_torch.utils.profiling import span
+
 
 def _pyarrow():
     try:
@@ -77,6 +79,7 @@ class ArrowShardStream:
                  % self._process_count == self._process_index]
         return mine
 
+    @span("mapf.data.load_shard")
     def _load_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:
         tokens, actions = read_arrow_shard(path, self.context)
         perm = self.rng.permutation(len(tokens))
@@ -92,10 +95,11 @@ class ArrowShardStream:
                 tokens, actions = self._load_file(self.files[fi])
                 n = (len(tokens) // need) * need
                 for i in range(0, n, need):
-                    x = tokens[i:i + need].astype(np.int32).reshape(
-                        self.grad_accum, self.batch_size, self.context)
-                    y = actions[i:i + need].astype(np.int32).reshape(
-                        self.grad_accum, self.batch_size)
+                    with span("mapf.data.batch"):     # closed before the consumer runs
+                        x = tokens[i:i + need].astype(np.int32).reshape(
+                            self.grad_accum, self.batch_size, self.context)
+                        y = actions[i:i + need].astype(np.int32).reshape(
+                            self.grad_accum, self.batch_size)
                     yield x, y
 
 

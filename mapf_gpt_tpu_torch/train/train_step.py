@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from mapf_gpt_tpu_torch.models.gpt import GPT, uses_fused
+from mapf_gpt_tpu_torch.utils.profiling import span
 
 
 class TrainConfig(NamedTuple):
@@ -152,18 +153,22 @@ def make_train_step(model: GPT, tc: TrainConfig, optimizer: AdamW | None = None,
     grad_loss = select_loss_fn(model, use_fused)
     scale = 1.0 / tc.grad_accum
 
+    @span("mapf.train.step")
     def train_step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         for p in opt.params:
             p.grad = None
         loss_sum = torch.zeros((), device=tokens.device)
         for x, y in zip(tokens, targets):
-            loss = grad_loss(x, y)
-            loss.backward()
+            with span("mapf.train.forward"):
+                loss = grad_loss(x, y)
+            with span("mapf.train.backward"):
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
-        loss, grads = loss_sum * scale, [p.grad * scale for p in opt.params]
-        if sync is not None:
-            sync([loss, *grads])
-        opt.update(grads)
+        with span("mapf.train.optimizer"):         # with the all-reduce, where `sync` is given
+            loss, grads = loss_sum * scale, [p.grad * scale for p in opt.params]
+            if sync is not None:
+                sync([loss, *grads])
+            opt.update(grads)
         return loss
 
     train_step.optimizer = opt

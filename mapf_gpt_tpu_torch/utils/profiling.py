@@ -1,10 +1,18 @@
-"""Throughput and MFU meters, a ``torch.profiler`` trace and device time by kernel.
+"""Throughput and MFU meters, the program's profiler spans and device time by
+kernel.
 
 The port's counterpart of ``mapf_gpt_tpu/utils/profiling.py``: MFU is
 measured against the card's dense bf16 peak with the PaLM appendix-B flop
 model.  A device with no known peak (the CPU, an unlisted card) gets no
 MFU: :class:`Meter` returns None for it rather than a number that is not
 the device's.
+
+:class:`span` marks a layer of the program (the rollout step, tokenization,
+the policy forward and act, the env step and reset, each arbiter and
+relaxation round, the training step and its parts, the shard feed) with a
+``torch.profiler`` range named ``mapf.<layer>.<part>``, on the profiler's
+clock beside the device's activities.  A span is recorded only while a
+profiler records on the calling thread; otherwise it costs one flag check.
 """
 
 from __future__ import annotations
@@ -69,17 +77,35 @@ class Meter:
         return self.smoothed, self.smoothed * self.flops_per_step / self.peak_flops
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """A ``torch.profiler`` trace of the CPU and, where there is one, the
-    card, written as a Chrome trace under `log_dir`."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+class span(contextlib.ContextDecorator):
+    """A ``torch.profiler.record_function`` range named `name` while a
+    profiler is recording, nothing otherwise; a context manager, or a
+    decorator that opens the span on each call.
+
+    Names are fixed strings under ``mapf.``, never formatted with shapes or
+    ids: a span's parent is the span it nests in.  With no profiler recording
+    the range is not entered (an idle ``record_function`` costs a call into
+    the profiler each time), so the program's results and, within that flag
+    check, its speed are the same with spans or without."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def _recreate_cm(self):
+        return span(self.name)
+
+    def __enter__(self):
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
 
 
 def kernel_times(fn, reps: int) -> list[tuple[float, float, str]]:
