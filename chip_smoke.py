@@ -260,8 +260,8 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    the first bit for bit; then each timed beside its bound and its plain
    version, the MLP front beside two ``gemm_tile`` products of the same
    operands (bf16 out: the old route's products without their fp32
-   stores), the LN epilogue beside ``gemm_tile``'s product alone.  Under a
-   second.
+   stores), the LN epilogue beside ``gemm_tile``'s product alone and as a
+   multiple of it.  Under a second.
 
 Then an ``[expert data]`` line with phases 17-20's numbers, an
 ``[evaluator]`` line with phase 16's, the card's name and power limit, the
@@ -1838,10 +1838,10 @@ def bwd_gemm_phase(seed: int, dev) -> dict:
                          + m * e * 2 + e * 4)
             row[f"ln_dx_kernel {site.split()[0]}"] = {
                 "ms": ms_ln, "plain_ms": ms_plain, "bound_ms": b_ln[0], "bound_by": b_ln[1],
-                "gemm_tile_ms": ms_mm}
+                "gemm_tile_ms": ms_mm, "over_gemm_tile": ms_ln / ms_mm}
             log(f"[timing] {name}: {ms_ln:.4f} ms, bound {b_ln[0]:.4f} ms ({b_ln[1]}, "
                 f"{100 * b_ln[0] / ms_ln:.2f} % of bound); gemm_tile's product alone (bf16 out) "
-                f"{ms_mm:.4f} ms; plain {ms_plain:.3f} ms")
+                f"{ms_mm:.4f} ms, the kernel {ms_ln / ms_mm:.2f}x that; plain {ms_plain:.3f} ms")
             del a, x, dx
         rows[label] = row
     seconds = time.perf_counter() - t0

@@ -60,7 +60,13 @@
 //     stays in registers, each row's sums of dY g and dY g xhat are taken
 //     in the quad that holds the row, dx += LN_bwd(dY) in fp32, dxb =
 //     bf16(dx), and each 128-row tile leaves one gain-gradient partial row;
-//     the recompute's ln_kernel keeps the rows' mean and 1/std for it.  At
+//     the recompute's ln_kernel keeps the rows' mean and 1/std for it.  The
+//     epilogue's x and dx come by TMA through the product's own ring (a
+//     48 KB stage a 64-column chunk, loaded as the tile's last k-tiles free
+//     their stages), dx and dxb are written over them in shared memory and
+//     leave by TMA from a storer warp while the next tile's products run:
+//     231,536 bytes of shared memory, 448 KB of the epilogue's traffic a
+//     128 x 256 tile, x read once.  At
 //     E <= 256 a CTA owns whole rows; up to E = 2048 a row's 256-column
 //     tiles run as one thread-block cluster that adds the ranks' row sums
 //     in rank order through distributed shared memory (tbg::ln_ranks, the

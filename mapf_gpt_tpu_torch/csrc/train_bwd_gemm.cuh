@@ -37,6 +37,21 @@
 //   adds them in rank order, so every rank forms the same m1, m2.  dY never
 //   leaves registers.  Columns past EL (an n_embd stored padded to a
 //   multiple of 8) keep dx and get dxb = bf16(dx).
+//   The epilogue's traffic moves by TMA, beside the products: after a tile's
+//   k-tiles the producer loads the tile's x (bf16) and dx (fp32) through
+//   the same ring, a stage a chunk of 64 columns (128 x 64 x (2 + 4) bytes
+//   is a k-tile's 48 KB), as the last k-tiles free their stages; the two
+//   passes read them from shared memory, pass 2 writes dx and dxb over them
+//   in place, and a storer warp of the producer's warpgroup stores each
+//   chunk by TMA and frees its stage once the store has read it, so the
+//   next tile's k-tiles load while the stores drain, then adds the gain
+//   partial from the warps' column sums.  The consumers start no bulk copy:
+//   with TMA stores among them ptxas held them to 168 registers and they
+//   spilled; without, the epilogue has the 232 that setmaxnreg allows.
+//   Shared memory: the four 48 KB stages, the warps' column sums (2 x 8 KB),
+//   the ranks' row sums (2 x 8 KB), g (1 KB), barriers: 231,536 of 232,448
+//   bytes.  A tile's epilogue moves 448 KB: x 64 KB read once, dx 128 KB in
+//   and 128 KB out, dxb 64 KB out.
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s): the front at the 6M (M =
 // 65536, E = 256, F = 1024) does 69 GFLOP and writes 268 MB (hact and dh):
@@ -86,18 +101,26 @@ struct FrontCfg {
   static constexpr int SMEM = STAGES * STAGE + C_BYTES + 2 * STAGES * 8 + 1024;
 };
 
-// Four stages, the most that fit beside the epilogue's buffers: the producer
-// loads the next tile's first four k-tiles while the consumers run the
-// epilogue, which the card showed to matter (dxb staged for TMA at the cost
-// of a stage ran slower than dxb stored from registers).
+// Four stages of a k-tile of A and W each; after a tile's k-tiles the same
+// ring carries its epilogue's chunks, a stage one: x [128 rows][64] bf16 and
+// dx [128][2 x 32] fp32, three regions of 128 rows of 128 bytes (TMA's
+// 128-byte swizzle).  Pass 1 reads all four chunks at once, so the ring holds
+// at least CHUNKS stages.
+constexpr int LN_CHUNK = 64;
 struct LnCfg {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + LN_BN * BK * 2;
   static constexpr int STAGES = 4;
+  static constexpr int CHUNKS = LN_BN / LN_CHUNK;
+  static constexpr int REGION = BM * 128;
   static constexpr int COL_BYTES = 2 * 8 * LN_BN * 4;              // 8 warps' column sums, x2
   static constexpr int X_BYTES = 2 * LN_MAX_RANKS * BM * 8;        // ranks' row sums, x2
-  static constexpr int SMEM = STAGES * STAGE + COL_BYTES + X_BYTES + (2 * STAGES + 2) * 8 + 1024;
+  static constexpr int G_BYTES = LN_BN * 4;                        // g of the tile's columns
+  static constexpr int SMEM =
+      STAGES * STAGE + COL_BYTES + X_BYTES + (2 * STAGES + 2 + CHUNKS) * 8 + G_BYTES + 1024;
 };
+static_assert(3 * LnCfg::REGION == LnCfg::STAGE && LnCfg::STAGES >= LnCfg::CHUNKS,
+              "an epilogue chunk fills a ring stage, and the ring holds a tile's chunks");
 static_assert(FrontCfg::SMEM <= 232448 && LnCfg::SMEM <= 232448, "a block's shared memory");
 
 // ---------------------------------------------------------------- device side
@@ -321,7 +344,7 @@ mlp_front_kernel(const __grid_constant__ CUtensorMap ta1, const __grid_constant_
 
 // What the LN epilogue reads and writes besides the product: x [M, E] (ldx),
 // g [E], the rows' mu and rstd [M]; dx [M, E] fp32 updated, dxb [M, E] bf16,
-// partial [row tiles, E].
+// partial [row tiles, E].  x, dx and dxb move by TMA (the launcher's maps).
 struct LnArgs {
   const bf16* x;
   long long ldx;
@@ -334,18 +357,32 @@ struct LnArgs {
   int EL;
 };
 
+// the thread's bulk stores but the newest group have read their shared memory
+__device__ __forceinline__ void bulk_wait_read_all_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// `count` arrivals on the barrier at once
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(gemm::smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
 // dY = A W^T (A [M, K] by map ta {64, BM}, W [E, K] by tb {64, 256}) and the
-// LayerNorm backward on it, as the header says; CLUSTER: E spans ranks > 1
-// tiles, launched as clusters of that many CTAs.
+// LayerNorm backward on it, as the header says; x by tx {64, 64}, dx by tdx
+// {32, 64} (fp32, loaded and stored), dxb by tdxb {64, 64}.  CLUSTER: E spans
+// ranks > 1 tiles, launched as clusters of that many CTAs.
 template <bool CLUSTER>
 __global__ void __launch_bounds__(THREADS, 1)
-ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int M,
-             int E, int K, const LnArgs a) {
+ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdx,
+             const __grid_constant__ CUtensorMap tdxb, int M, int E, int K, const LnArgs a) {
   using C = LnCfg;
-  constexpr int BN = LN_BN;
+  constexpr int BN = LN_BN, HALF = C::REGION / 2;   // a warpgroup's 64 rows of a region
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // aligned by pointer arithmetic, so the compiler keeps the shared space
+  unsigned char* smem = smem_raw + ((1024 - (gemm::smem_u32(smem_raw) & 1023)) & 1023);
   float* colsum = reinterpret_cast<float*>(smem + C::STAGES * C::STAGE);   // [2][8][BN]
   float2* xrow = reinterpret_cast<float2*>(smem + C::STAGES * C::STAGE + C::COL_BYTES);
   // xrow [2][LN_MAX_RANKS][BM]: each rank's (sum d, sum d xhat) of a row
@@ -353,6 +390,8 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
                                                C::X_BYTES);
   uint64_t* empty = full + C::STAGES;
   uint64_t* xbar = empty + C::STAGES;   // [2]: the ranks' row sums have arrived
+  uint64_t* done = xbar + 2;            // [CHUNKS]: the consumers have written chunk q's outputs
+  float* gsm = reinterpret_cast<float*>(done + C::CHUNKS);   // [BN]: the rank's g, 0 past E
   const int wg = threadIdx.x >> 7;
   const int ranks = CLUSTER ? cdiv(E, BN) : 1;
   const int rank = CLUSTER ? (int)cluster_rank() : 0;
@@ -368,6 +407,7 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     // every rank's 8 consumer warps x 8 quads push a tile's row sums
     gemm::mbar_init(&xbar[0], 64 * ranks);
     gemm::mbar_init(&xbar[1], 64 * ranks);
+    for (int q = 0; q < C::CHUNKS; ++q) gemm::mbar_init(&done[q], 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (CLUSTER)
@@ -376,9 +416,66 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     __syncthreads();
 
   if (wg == 0) {
+    // the producer: a tile's k-tiles, then its epilogue chunks through the
+    // same ring (the boxes that hold no row or column are not loaded)
     gemm::setmaxnreg_dec<40>();
+    if ((threadIdx.x >> 5) == 1) {
+      // the storer warp: each chunk's dxb and dx by TMA once the consumers
+      // have written them, its stage freed once those stores have read it;
+      // then the tile's gain partial
+      const int lane = threadIdx.x & 31;
+      int it = 0, seq = 0;   // ring positions: ktiles + CHUNKS a tile
+      for (int m = first; m < mt; m += step, ++it) {
+        seq += ktiles;
+        for (int q = 0; q < C::CHUNKS; ++q) {
+          const int col = n0 + q * LN_CHUNK;
+          unsigned char* s = smem + ((seq + q) % C::STAGES) * C::STAGE;
+          gemm::mbar_wait(&done[q], it & 1);
+          if (lane == 0) {
+            for (int h = 0; h < 2; ++h) {
+              const int r = m * BM + 64 * h;
+              if (col < E && r < M) {
+                gemm::tma_store(&tdxb, s + h * HALF, col, r);
+                gemm::tma_store(&tdx, s + C::REGION + h * HALF, col, r);
+                if (col + 32 < E) gemm::tma_store(&tdx, s + 2 * C::REGION + h * HALF, col + 32, r);
+              }
+            }
+            gemm::bulk_commit();
+            if (q > 0) {
+              bulk_wait_read_all_but_one();
+              mbar_arrive_n(&empty[(seq + q - 1) % C::STAGES], 8);
+            }
+          }
+          __syncwarp();
+        }
+        // the 8 warps' column sums in order: each warp's pass 1 came before
+        // its arrival on done
+        const float* cp = colsum + (it & 1) * 8 * BN;
+        for (int col = lane; col < BN; col += 32) {
+          float v = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) v += cp[w * BN + col];
+          if (n0 + col < E) a.partial[(size_t)m * E + n0 + col] = v;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          gemm::bulk_wait<true>();
+          mbar_arrive_n(&empty[(seq + C::CHUNKS - 1) % C::STAGES], 8);
+        }
+        __syncwarp();
+        seq += C::CHUNKS;
+      }
+      if (lane == 0) gemm::bulk_wait<false>();
+      return;
+    }
     if (threadIdx.x != 0) return;
     int stage = 0, phase = 0;
+    auto next = [&] {
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
     for (int m = first; m < mt; m += step) {
       for (int kt = 0; kt < ktiles; ++kt) {
         gemm::mbar_wait(&empty[stage], phase ^ 1);
@@ -386,10 +483,22 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
         unsigned char* s = smem + stage * C::STAGE;
         gemm::tma_load(s, &ta, &full[stage], kt * BK, m * BM);
         gemm::tma_load(s + C::A_BYTES, &tb, &full[stage], kt * BK, n0);
-        if (++stage == C::STAGES) {
-          stage = 0;
-          phase ^= 1;
+        next();
+      }
+      const int halves = m * BM + 64 < M ? 2 : 1;
+      for (int q = 0; q < C::CHUNKS; ++q) {
+        const int col = n0 + q * LN_CHUNK;
+        const int regions = col >= E ? 0 : col + 32 < E ? 3 : 2;   // x, dx's two column halves
+        gemm::mbar_wait(&empty[stage], phase ^ 1);
+        gemm::mbar_expect_tx(&full[stage], halves * regions * HALF);
+        unsigned char* s = smem + stage * C::STAGE;
+        for (int h = 0; h < halves; ++h) {
+          const int r = m * BM + 64 * h;
+          if (regions > 0) gemm::tma_load(s + h * HALF, &tx, &full[stage], col, r);
+          for (int d = 0; d + 1 < regions; ++d)
+            gemm::tma_load(s + (1 + d) * C::REGION + h * HALF, &tdx, &full[stage], col + 32 * d, r);
         }
+        next();
       }
     }
     return;
@@ -400,10 +509,25 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
   const int g = lane >> 2, c = lane & 3;
   const int cwarp = cw * 4 + warp;          // 0..7
   const int ct = threadIdx.x - 128;         // 0..255
+  const int rw = warp * 16 + g;             // the thread's rows rw, rw + 8 of its warpgroup's 64
+  const int rl = cw * 64 + rw;              // ... and of the tile
+  gsm[ct] = n0 + ct < E ? a.g[n0 + ct] : 0.f;
+  consumers_barrier();
   int stage = 0, phase = 0, it = 0;
   float acc[BN / 8][4];
   for (int m = first; m < mt; m += step, ++it) {
     const int m0 = m * BM;
+    // the rows' mu and rstd, read while the products run; 0 past M, where
+    // pass 1 takes x as 0 too (a 64-row half past M is not loaded)
+    bool in[2];
+    float mu[2], rs[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = m0 + rl + 8 * i;
+      in[i] = r < M;
+      mu[i] = in[i] ? a.mu[r] : 0.f;
+      rs[i] = in[i] ? a.rs[r] : 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     int prev = -1;
@@ -432,87 +556,85 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     wg::fence_operands<BN / 8>(acc);
     if (prev >= 0 && lane == 0) gemm::mbar_arrive(&empty[prev]);
 
-    // pass 1: the rows' sums of d and d xhat over this tile's columns, and the
-    // columns' sums of dY xhat over the warp's 16 rows
-    const int par = it & 1;
-    const int rl = cw * 64 + warp * 16 + g;   // the thread's rows rl, rl + 8 of the tile
-    float mu[2], rs[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = m0 + rl + 8 * i;
-      mu[i] = r < M ? a.mu[r] : 0.f;
-      rs[i] = r < M ? a.rs[r] : 0.f;
-    }
-    float* cs = colsum + par * 8 * BN + cwarp * BN;
-    constexpr int JC = 8;
-#pragma unroll
-    for (int j0 = 0; j0 < BN / 8; j0 += JC) {
-      __nv_bfloat162 xv[JC][2];
-      float2 gv[JC];
-#pragma unroll
-      for (int jj = 0; jj < JC; ++jj) {
-        const int col = n0 + 8 * (j0 + jj) + 2 * c;
-        gv[jj] = col < E ? *reinterpret_cast<const float2*>(a.g + col) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = m0 + rl + 8 * i;
-          xv[jj][i] = col < E && r < M
-                          ? *reinterpret_cast<const __nv_bfloat162*>(a.x + (size_t)r * a.ldx + col)
-                          : __floats2bfloat162_rn(0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < JC; ++jj) {
-        const int j = j0 + jj, col = n0 + 8 * j + 2 * c;
-        float cs0 = 0.f, cs1 = 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 xf = __bfloat1622float2(xv[jj][i]);
-          const float xh0 = (xf.x - mu[i]) * rs[i], xh1 = (xf.y - mu[i]) * rs[i];
-          const float dy0 = acc[j][2 * i], dy1 = acc[j][2 * i + 1];
-          if (col < a.EL) {
-            const float d0 = dy0 * gv[jj].x;
-            s1[i] += d0;
-            s2[i] += d0 * xh0;
-          }
-          if (col + 1 < a.EL) {
-            const float d1 = dy1 * gv[jj].y;
-            s1[i] += d1;
-            s2[i] += d1 * xh1;
-          }
-          cs0 += dy0 * xh0;
-          cs1 += dy1 * xh1;
-        }
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          cs0 += __shfl_xor_sync(0xffffffffu, cs0, o);
-          cs1 += __shfl_xor_sync(0xffffffffu, cs1, o);
-        }
-        if (g == 0) *reinterpret_cast<float2*>(cs + 8 * j + 2 * c) = make_float2(cs0, cs1);
-      }
-    }
-    // pass 2's chunks of g, x and dx; in a cluster the first goes out
-    // before the row sums are exchanged, so the exchange hides its trip to
-    // memory (a CTA that owns whole rows ran no faster for it on the card)
-    __nv_bfloat162 xv[JC][2];
-    float2 gv[JC], dv[JC][2];
-    auto load_chunk = [&](int j0) {
-#pragma unroll
-      for (int jj = 0; jj < JC; ++jj) {
-        const int col = n0 + 8 * (j0 + jj) + 2 * c;
-        gv[jj] = col < E ? *reinterpret_cast<const float2*>(a.g + col) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = m0 + rl + 8 * i;
-          const bool in = col < E && r < M;
-          xv[jj][i] = in ? *reinterpret_cast<const __nv_bfloat162*>(a.x + (size_t)r * a.ldx + col)
-                         : __floats2bfloat162_rn(0.f, 0.f);
-          dv[jj][i] = in ? *reinterpret_cast<const float2*>(a.dx + (size_t)r * E + col)
-                         : make_float2(0.f, 0.f);
-        }
-      }
+    // The epilogue's chunks q = 0..3 (columns n0 + 64 q ..) lie in the next
+    // four stages.  In a region a row is 128 bytes whose 16-byte pieces sit
+    // at piece ^ (row & 7), and row & 7 = g: x's piece of n8 tile jl is jl,
+    // dx's is 2 (jl & 3) + (c >> 1) of region 1 + (jl >> 2); a warp's reads
+    // and writes touch each bank once (x) or twice (dx, 256 bytes).
+    const int st0 = stage;
+    auto chunk = [&](int q) {
+      return smem + ((st0 + q) % C::STAGES) * C::STAGE + cw * HALF + rw * 128;
     };
-    if (CLUSTER) load_chunk(0);
+    auto x_at = [&](unsigned char* p, int jl, int i) {
+      return reinterpret_cast<__nv_bfloat162*>(p + i * 1024 + ((jl ^ g) << 4) + 4 * c);
+    };
+    auto dx_at = [&](unsigned char* p, int jl, int i) {
+      return reinterpret_cast<float2*>(p + (1 + (jl >> 2)) * C::REGION + i * 1024 +
+                                       (((2 * (jl & 3) + (c >> 1)) ^ g) << 4) + 8 * (c & 1));
+    };
+
+    // pass 1: the rows' sums of d and d xhat over this tile's columns, and the
+    // columns' sums of dY xhat over the warp's 16 rows; two n8 tiles at a
+    // time, their x and g read first
+    const int par = it & 1;
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    float* cs = colsum + par * 8 * BN + cwarp * BN;
+#pragma unroll
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      gemm::mbar_wait(&full[stage], phase);
+      unsigned char* p = chunk(q);
+#pragma unroll
+      for (int jl = 0; jl < LN_CHUNK / 8; jl += 2) {
+        const int j0 = q * (LN_CHUNK / 8) + jl;
+        float2 xf[2][2], gv[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          gv[jj] = *reinterpret_cast<const float2*>(gsm + 8 * (j0 + jj) + 2 * c);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            xf[jj][i] = in[i] ? __bfloat1622float2(*x_at(p, jl + jj, i)) : make_float2(0.f, 0.f);
+        }
+        float v[4];   // the four columns' dY xhat over the thread's two rows
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = j0 + jj, col = n0 + 8 * j + 2 * c;
+          float cs0 = 0.f, cs1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float xh0 = (xf[jj][i].x - mu[i]) * rs[i], xh1 = (xf[jj][i].y - mu[i]) * rs[i];
+            const float dy0 = acc[j][2 * i], dy1 = acc[j][2 * i + 1];
+            if (col < a.EL) {
+              const float d0 = dy0 * gv[jj].x;
+              s1[i] += d0;
+              s2[i] += d0 * xh0;
+            }
+            if (col + 1 < a.EL) {
+              const float d1 = dy1 * gv[jj].y;
+              s1[i] += d1;
+              s2[i] += d1 * xh1;
+            }
+            cs0 += dy0 * xh0;
+            cs1 += dy1 * xh1;
+          }
+          v[2 * jj] = cs0;
+          v[2 * jj + 1] = cs1;
+        }
+        // each column's sum over the warp's eight quads in the xor-shuffles'
+        // tree, ((g0 + g1) + (g2 + g3)) + ((g4 + g5) + (g6 + g7)), with the
+        // values halved at the first two steps: lanes g and g + 4 end with
+        // value g & 3's
+        const bool b0 = lane & 4, b1 = lane & 8;
+        const float w0 = (b0 ? v[1] : v[0]) + __shfl_xor_sync(0xffffffffu, b0 ? v[0] : v[1], 4);
+        const float w1 = (b0 ? v[3] : v[2]) + __shfl_xor_sync(0xffffffffu, b0 ? v[2] : v[3], 4);
+        float z = (b1 ? w1 : w0) + __shfl_xor_sync(0xffffffffu, b1 ? w0 : w1, 8);
+        z += __shfl_xor_sync(0xffffffffu, z, 16);
+        if (g < 4) cs[8 * (j0 + (g >> 1)) + 2 * c + (g & 1)] = z;
+      }
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -551,39 +673,32 @@ ln_dx_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
       }
     }
 
-    // pass 2: dx += (d - m1 - xhat m2) rstd, dxb = bf16(dx)
+    // pass 2, a chunk at a time: dx += (d - m1 - xhat m2) rstd in dx's place
+    // in the stage and dxb = bf16(dx) in x's; each warp then tells the storer
 #pragma unroll
-    for (int j0 = 0; j0 < BN / 8; j0 += JC) {
-      if (j0 > 0 || !CLUSTER) load_chunk(j0);
+    for (int q = 0; q < C::CHUNKS; ++q) {
+      unsigned char* p = chunk(q);
 #pragma unroll
-      for (int jj = 0; jj < JC; ++jj) {
-        const int j = j0 + jj, col = n0 + 8 * j + 2 * c;
-        if (col >= E) continue;
+      for (int jl = 0; jl < LN_CHUNK / 8; ++jl) {
+        const int j = q * (LN_CHUNK / 8) + jl, col = n0 + 8 * j + 2 * c;
+        const float2 gv = *reinterpret_cast<const float2*>(gsm + 8 * j + 2 * c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int r = m0 + rl + 8 * i;
-          if (r >= M) continue;
-          const float2 xf = __bfloat1622float2(xv[jj][i]);
+          __nv_bfloat162* xp = x_at(p, jl, i);
+          float2* dp = dx_at(p, jl, i);
+          const float2 xf = __bfloat1622float2(*xp);
           const float xh0 = (xf.x - mu[i]) * rs[i], xh1 = (xf.y - mu[i]) * rs[i];
-          const float d0 = acc[j][2 * i] * gv[jj].x, d1 = acc[j][2 * i + 1] * gv[jj].y;
-          float2 v = dv[jj][i];
+          const float d0 = acc[j][2 * i] * gv.x, d1 = acc[j][2 * i + 1] * gv.y;
+          float2 v = *dp;
           if (col < a.EL) v.x = v.x + (d0 - m1[i] - xh0 * m2[i]) * rs[i];
           if (col + 1 < a.EL) v.y = v.y + (d1 - m1[i] - xh1 * m2[i]) * rs[i];
-          *reinterpret_cast<float2*>(a.dx + (size_t)r * E + col) = v;
-          *reinterpret_cast<__nv_bfloat162*>(a.dxb + (size_t)r * E + col) =
-              __floats2bfloat162_rn(v.x, v.y);
+          *dp = v;
+          *xp = __floats2bfloat162_rn(v.x, v.y);
         }
       }
-    }
-
-    // the tile's gain partial: the 8 warps' column sums in order
-    consumers_barrier();
-    {
-      const float* cp = colsum + par * 8 * BN;
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) v += cp[w * BN + ct];
-      if (n0 + ct < E) a.partial[(size_t)m * E + n0 + ct] = v;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) gemm::mbar_arrive(&done[q]);
     }
   }
 }
@@ -614,6 +729,26 @@ inline cudaError_t mlp_front(const bf16* xn2, const bf16* dxb, const bf16* wfc, 
   return cudaGetLastError();
 }
 
+// A tensor map over a row-major fp32 matrix [rows, cols] (rows ld elements
+// apart), boxes of {32 columns, box_rows rows}, as gemm::make_map's: 128-byte
+// rows, swizzled, zero fill past its edges.
+inline cudaError_t make_map_f32(CUtensorMap* map, const float* p, int rows, int cols,
+                                long long ld, int box_rows) {
+  const gemm::EncodeTiled enc = gemm::encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(p) & 15) || (ld & 3) || rows < 1 || cols < 1)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // dY = A W^T (A [M, K], W [E, K] dense) with the LayerNorm backward in the
 // epilogue; E must take the route (ln_ranks(E) > 0).
 inline cudaError_t ln_dx(const bf16* A, const bf16* W, int M, int E, int K, const LnArgs& args,
@@ -622,9 +757,12 @@ inline cudaError_t ln_dx(const bf16* A, const bf16* W, int M, int E, int K, cons
   if (M < 1 || E < 1 || K < 1 || (E & 7) || (K & 7) || ranks == 0 || args.EL < 1 ||
       args.EL > E)
     return cudaErrorInvalidValue;
-  CUtensorMap ta, tb;
+  CUtensorMap ta, tb, tx, tdx, tdxb;
   cudaError_t err = gemm::make_map(&ta, A, M, K, K, BM);
   if (err == cudaSuccess) err = gemm::make_map(&tb, W, E, K, K, LN_BN);
+  if (err == cudaSuccess) err = gemm::make_map(&tx, args.x, M, E, args.ldx, 64);
+  if (err == cudaSuccess) err = make_map_f32(&tdx, args.dx, M, E, E, 64);
+  if (err == cudaSuccess) err = gemm::make_map(&tdxb, args.dxb, M, E, E, 64);
   if (err != cudaSuccess) return err;
   const int mt = cdiv(M, BM);
   if (ranks == 1) {
@@ -632,7 +770,8 @@ inline cudaError_t ln_dx(const bf16* A, const bf16* W, int M, int E, int K, cons
                                LnCfg::SMEM);
     if (err != cudaSuccess) return err;
     const int grid = mt < sms() ? mt : sms();
-    ln_dx_kernel<false><<<grid, THREADS, LnCfg::SMEM, stream>>>(ta, tb, M, E, K, args);
+    ln_dx_kernel<false><<<grid, THREADS, LnCfg::SMEM, stream>>>(ta, tb, tx, tdx, tdxb, M, E, K,
+                                                                args);
     return cudaGetLastError();
   }
   err = cudaFuncSetAttribute(ln_dx_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -655,7 +794,7 @@ inline cudaError_t ln_dx(const bf16* A, const bf16* W, int M, int E, int K, cons
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   cfg.gridDim = dim3(ranks * (mt < clusters ? mt : clusters));
-  return cudaLaunchKernelEx(&cfg, ln_dx_kernel<true>, ta, tb, M, E, K, args);
+  return cudaLaunchKernelEx(&cfg, ln_dx_kernel<true>, ta, tb, tx, tdx, tdxb, M, E, K, args);
 }
 
 }  // namespace tbg

@@ -7,15 +7,21 @@ JAX package, the LayerNorm route, and the wrappers' checks.
   each with two fp32 accumulators over K in 64-deep tiles in order (hmid =
   xn2 Wfc, dhact = dxb Wfc2^T), then hact = bf16(gelu(hmid)) and dh =
   bf16(dhact gelu'(hmid)) from the registers.
-- ``emulate_ln_dx`` repeats the LN epilogue: 128-row tiles of dY = A W^T,
-  the row's 256-column tiles one a cluster rank; a row's sums of d = dY g
-  and d xhat over the first EL columns taken by each thread of the quad
-  that holds the row (columns 8 j + 2 c and + 1, j ascending), the quad's
-  four sums added as its two xor-shuffles add them, the ranks' sums added
-  in rank order; dx += (d - m1 - xhat m2) rstd, dxb = bf16(dx), columns
-  past EL kept; each 128-row tile's gain partial the 8 warps' column sums
-  in order (each a warp's 16 rows: two rows a thread, then the three
-  xor-shuffles over the eight quads), the partials added in order.
+- ``emulate_ln_dx`` repeats the LN epilogue: each CTA (each cluster)
+  walks its 128-row tiles of dY = A W^T as the persistent loop takes them
+  (``ln_walks``), the row's 256-column tiles one a cluster rank; x and dx
+  come as the producer stages them after the tile's k-tiles, a ring stage
+  a 64-column chunk (the four chunks' stages distinct, so pass 1 holds them
+  all), in TMA boxes of 64 rows, zero past the tensor and NaN where a box
+  holds no row or column and is not loaded; a row's sums of d = dY g and d
+  xhat over the first EL columns taken by each thread of the quad that
+  holds the row (columns 8 j + 2 c and + 1, j ascending), x zero on rows
+  past M, the quad's four sums added as its two xor-shuffles add them, the
+  ranks' sums added in rank order; dx += (d - m1 - xhat m2) rstd, dxb =
+  bf16(dx), columns past EL kept, only rows below M and columns below E
+  stored; each 128-row tile's gain partial the 8 warps' column sums in
+  order (each a warp's 16 rows: two rows a thread, then the xor-shuffles'
+  tree over the eight quads), the partials added in row-tile order.
 - Each is held against its plain version (``mlp_front_reference``,
   ``ln_backward_dx_reference``), and a whole one-layer backward chunk with
   both emulated (the plain attention around them, the stored width padded
@@ -50,6 +56,10 @@ from mapf_gpt_tpu_torch.ops.fused_blocks import stored_width
 
 BF16 = torch.bfloat16
 BM, BN_FRONT, BK, BN_LN = 128, 128, 64, 256
+SMS = 132                      # the LN launcher's grid: min(row tiles, SMs) CTAs
+LN_STAGES, LN_CHUNK = 4, 64    # csrc/train_bwd_gemm.cuh's LnCfg::STAGES and LN_CHUNK
+LN_CHUNKS = BN_LN // LN_CHUNK  # a tile's epilogue chunks, a ring stage each
+HALF_ROWS = 64                 # a TMA box's rows: a consumer warpgroup's half
 
 
 def _tiled(a, b):
@@ -100,43 +110,95 @@ def _quad_sums(z, el, col0):
     return (sums[0] + sums[1]) + (sums[2] + sums[3])
 
 
-def emulate_ln_dx(a, w, x, g, dx, mu, rstd, el):
+def ln_walks(m, ctas=None):
+    """The row tiles each CTA (each cluster) walks, first, first + step, ..., as
+    the persistent kernel's loop takes them; the launcher starts min(row
+    tiles, SMS) of them."""
+    mt = -(-m // BM)
+    ctas = min(mt, SMS) if ctas is None else ctas
+    return [list(range(first, mt, ctas)) for first in range(ctas)]
+
+
+def _stage(src, r0, c0, halves, e, box_cols, width):
+    """A tile's region of the epilogue's stages, [128, width] fp32, as the
+    producer loads it: TMA boxes of 64 rows x box_cols columns, zero past the
+    tensor's edges; a box that holds no row (a second half past M) or no
+    column (past E) is not loaded, and reads NaN here."""
+    out = torch.full((BM, width), float("nan"))
+    m = src.shape[0]
+    for h in range(halves):
+        for c in range(0, width, box_cols):
+            if c0 + c >= e:
+                continue
+            box = torch.zeros((HALF_ROWS, box_cols))
+            r = r0 + HALF_ROWS * h
+            rows = src[r:min(m, r + HALF_ROWS), c0 + c:c0 + c + box_cols]
+            box[:rows.shape[0], :rows.shape[1]] = rows.float()
+            out[HALF_ROWS * h:HALF_ROWS * (h + 1), c:c + box_cols] = box
+    return out
+
+
+def emulate_ln_dx(a, w, x, g, dx, mu, rstd, el, ctas=None):
     """The LN epilogue on bf16 a [M, K], w [E, K], x [M, E], fp32 g [E], dx
-    [M, E], mu, rstd [M] -> (dx fp32, dxb bf16, dg [E])."""
+    [M, E], mu, rstd [M] -> (dx fp32, dxb bf16, dg [E]), each CTA walking its
+    row tiles (:func:`ln_walks`; `ctas` overrides the launcher's count) with
+    the ring positions the producer, the consumers and the storer each
+    compute, and x and dx read from the stages as TMA leaves them (NaN where
+    a box is not loaded: nothing stored may depend on it)."""
     m, e = x.shape
+    k = a.shape[1]
     ranks = -(-e // BN_LN)
     width = ranks * BN_LN
-    pad = lambda z: F.pad(z, (0, width - e))
     wp = F.pad(w.float(), (0, 0, 0, width - e))
-    gp = pad(g)
+    gp = F.pad(g, (0, width - e))   # the staged g: 0 past E
+    ktiles = -(-k // BK)
     out = dx.clone()
     dxb = torch.empty((m, e), dtype=BF16)
+    partial = torch.full((-(-m // BM), e), float("nan"))
+    for walk in ln_walks(m, ctas):
+        seq = 0   # the ring's positions so far: a tile's k-tiles, then its chunks
+        for it, t in enumerate(walk):
+            seq += ktiles
+            stages = [(seq + q) % LN_STAGES for q in range(LN_CHUNKS)]
+            assert len(set(stages)) == LN_CHUNKS   # pass 1 holds every chunk at once
+            seq += LN_CHUNKS
+            m0 = t * BM
+            rows = min(BM, m - m0)
+            halves = 2 if m0 + HALF_ROWS < m else 1
+            live = torch.arange(BM) < rows   # the consumers' row guard in pass 1
+            mu_t = torch.where(live, F.pad(mu[m0:m0 + rows], (0, BM - rows)), torch.zeros(()))
+            rs_t = torch.where(live, F.pad(rstd[m0:m0 + rows], (0, BM - rows)), torch.zeros(()))
+            dy = _tiled(F.pad(a[m0:m0 + rows], (0, 0, 0, BM - rows)), wp.T)
+            xs = _stage(x, m0, 0, halves, e, LN_CHUNK, width)
+            dxs = _stage(dx, m0, 0, halves, e, 32, width)
+            x1 = torch.where(live[:, None], xs, torch.zeros(()))
+            xhat1 = (x1 - mu_t[:, None]) * rs_t[:, None]
+            d = dy * gp
+            t1 = t2 = torch.zeros(BM)
+            for rk in range(ranks):   # pass 1 on each rank; the row sums in rank order
+                cols = slice(rk * BN_LN, (rk + 1) * BN_LN)
+                s1 = _quad_sums(d[:, cols], el, rk * BN_LN)
+                s2 = _quad_sums((d * xhat1)[:, cols], el, rk * BN_LN)
+                t1, t2 = (s1, s2) if ranks == 1 else (t1 + s1, t2 + s2)
+                # the gain partial: the 8 warps' column sums in order
+                per_thread = (dy * xhat1)[:, cols].reshape(8, 2, 8, BN_LN)   # warp, half, g
+                per_thread = per_thread[:, 0] + per_thread[:, 1]    # a thread's two rows
+                warp_sums = _pairs_tree(per_thread.transpose(0, 1))  # [8 warps, BN_LN]
+                part = torch.zeros(BN_LN)
+                for wi in range(8):
+                    part = part + warp_sums[wi]
+                n = min(BN_LN, e - rk * BN_LN)
+                partial[t, rk * BN_LN:rk * BN_LN + n] = part[:n]
+            m1, m2 = t1 / el, t2 / el
+            # pass 2 over the staged x and dx, rows unguarded (not stored past M)
+            xhat2 = (xs - mu_t[:, None]) * rs_t[:, None]
+            upd = (d - m1[:, None] - xhat2 * m2[:, None]) * rs_t[:, None]
+            v = dxs + torch.where(torch.arange(width) < el, upd, torch.zeros(()))
+            out[m0:m0 + rows] = v[:rows, :e]
+            dxb[m0:m0 + rows] = v[:rows, :e].to(BF16)
     dg = torch.zeros(e)
-    for m0 in range(0, m, BM):
-        r = slice(m0, m0 + BM)
-        dy = _tiled(a[r], wp.T)
-        xhat = (pad(x[r].float()) - mu[r, None]) * rstd[r, None]
-        d = dy * gp
-        t1 = t2 = torch.zeros(dy.shape[0])
-        for k in range(ranks):   # the ranks' row sums, in rank order
-            tile = slice(k * BN_LN, (k + 1) * BN_LN)
-            s1 = _quad_sums(d[:, tile], el, k * BN_LN)
-            s2 = _quad_sums((d * xhat)[:, tile], el, k * BN_LN)
-            t1, t2 = (s1, s2) if ranks == 1 else (t1 + s1, t2 + s2)
-        m1, m2 = t1 / el, t2 / el
-        upd = (d - m1[:, None] - xhat * m2[:, None]) * rstd[r, None]
-        v = out[r] + torch.where(torch.arange(e) < el, upd[:, :e], torch.zeros(()))
-        out[r] = v
-        dxb[r] = v.to(BF16)
-        # the gain partial: rows past M are zero (TMA's fill) in the 128-row tile
-        prod = F.pad(dy * xhat, (0, 0, 0, BM - dy.shape[0]))
-        per_thread = prod.reshape(8, 2, 8, width)           # warp, row half, quad g
-        per_thread = per_thread[:, 0] + per_thread[:, 1]    # a thread's two rows
-        warp_sums = _pairs_tree(per_thread.transpose(0, 1))  # [8 warps, width]
-        part = torch.zeros(width)
-        for wi in range(8):
-            part = part + warp_sums[wi]
-        dg = dg + part[:e]
+    for row in partial:   # the caller adds the partials in row-tile order
+        dg = dg + row
     return out, dxb, dg
 
 
@@ -169,14 +231,20 @@ def test_mlp_front_order_of_work_matches_plain_version(m, e, f):
     assert torch.equal(hact, fgt._gelu_tanh(_tiled(xn2, wfc)).to(BF16))
 
 
-# (rows, stored n_embd, the true n_embd, K): a CTA a row at 64 and 256 (250
-# normalised), clusters of 2, 3 and 5 ranks (264, 768, 1032)
-LN_CASES = [(200, 64, 64, 256), (140, 256, 250, 1000), (140, 256, 250, 768),
-            (32, 768, 768, 2304), (150, 264, 264, 1056), (40, 1032, 1032, 1032)]
+# (rows, stored n_embd, the true n_embd, K, CTAs or None for the launcher's):
+# a CTA a row at 64 and 256 (250 normalised), clusters of 2, 3 and 5 ranks
+# (264, 768, 1032); then the persistent walk's edges: a CTA that walks three
+# row tiles (an odd count: the column sums' buffers and the storer's barrier
+# phases alternate), a last row tile of 18 rows (its second 64-row half not
+# loaded) beside a rank whose last chunks lie past E, and one cluster of
+# five walking both tiles of 150 rows
+LN_CASES = [(200, 64, 64, 256, None), (140, 256, 250, 1000, None), (140, 256, 250, 768, None),
+            (32, 768, 768, 2304, None), (150, 264, 264, 1056, None), (40, 1032, 1032, 1032, None),
+            (600, 256, 250, 768, 2), (530, 264, 264, 1056, 2), (150, 1032, 1032, 1032, 1)]
 
 
-@pytest.mark.parametrize("m,e,el,k", LN_CASES)
-def test_ln_dx_order_of_work_matches_plain_version(m, e, el, k):
+@pytest.mark.parametrize("m,e,el,k,ctas", LN_CASES)
+def test_ln_dx_order_of_work_matches_plain_version(m, e, el, k, ctas):
     rng = np.random.RandomState(m + e + k)
     a, w = _bf16(rng, m, k, scale=0.1), _bf16(rng, e, k, scale=0.05)
     w[el:] = 0          # the padded layout's zero rows: dY is zero past EL
@@ -188,7 +256,7 @@ def test_ln_dx_order_of_work_matches_plain_version(m, e, el, k):
     dx[:, el:] = 0
     mu = x[:, :el].float().mean(-1)
     rstd = torch.rsqrt(((x[:, :el].float() - mu[:, None]) ** 2).mean(-1) + 1e-5)
-    got = emulate_ln_dx(a, w, x, g, dx, mu, rstd, el)
+    got = emulate_ln_dx(a, w, x, g, dx, mu, rstd, el, ctas)
     ref = fgt.ln_backward_dx_reference(a, w, x, g, dx, mu, rstd, el)
     for name, u, v in zip(("dx", "dxb", "dg"), got, ref):
         _close(u.float(), v.float(), 0.08, 1e-4, name)
@@ -306,6 +374,26 @@ def test_ln_route_mirror_reads_the_headers_constants():
     assert "EpiGeluGrad" not in tr and "EpiF32Gelu" not in tr and "hmid =" not in tr.split(
         "int backward_impl")[1]
     assert tuple(re.findall(r"(\w+_kernel)\(", hdr)[:2]) == fgt.BWD_GEMM_KERNELS
+
+
+def test_ln_ring_mirror_reads_the_headers_constants():
+    """emulate_ln_dx's ring and boxes are csrc/train_bwd_gemm.cuh's: LnCfg's
+    stages and chunk width, the 64-row boxes of x and dx, and a shared
+    memory budget that fits a block."""
+    hdr = (pathlib.Path(fgt.__file__).resolve().parent.parent / "csrc" /
+           "train_bwd_gemm.cuh").read_text()
+    cfg = re.search(r"struct LnCfg \{(.*?)\n\};", hdr, re.S)[1]
+    assert int(re.search(r"constexpr int LN_CHUNK = (\d+);", hdr)[1]) == LN_CHUNK
+    assert int(re.search(r"static constexpr int STAGES = (\d+);", cfg)[1]) == LN_STAGES
+    assert "CHUNKS = LN_BN / LN_CHUNK;" in cfg and "LnCfg::STAGES >= LnCfg::CHUNKS" in hdr
+    for name in ("tx, args.x", "tdxb, args.dxb"):
+        assert re.search(rf"make_map\(&{name}, M, E, [\w.]+, (\d+)\)", hdr)[1] == str(HALF_ROWS)
+    assert re.search(r"make_map_f32\(&tdx, args\.dx, M, E, E, (\d+)\)", hdr)[1] == str(HALF_ROWS)
+    stage = BM * BK * 2 + BN_LN * BK * 2
+    assert stage == 3 * BM * 128 == BM * LN_CHUNK * (2 + 4)   # a chunk of x and dx fills a stage
+    smem = (LN_STAGES * stage + 2 * 8 * BN_LN * 4 + 2 * fgt._LN_MAX_RANKS * BM * 8
+            + (2 * LN_STAGES + 2 + LN_CHUNKS) * 8 + BN_LN * 4 + 1024)
+    assert smem == 231536 <= 232448
 
 
 def _meta(*shape, dtype=BF16):
