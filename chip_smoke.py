@@ -8,9 +8,11 @@ Drives the port's main path, the batched rollout, for each published model
 the attention kernel, the 6M trainer, the suite evaluator (one-shot and
 lifelong episodes), and the expert-data path (the LaCAM* solver, shards
 generated on the card, the 85M trainer on them, ``--distributed``) through
-the entry points a user calls, and holds every CUDA kernel of those paths
-against its plain PyTorch version.  Phases, one line each (flushed); phase 12 runs right
-after phase 2, so that a faulty attention kernel fails within seconds:
+the entry points a user calls, and the Moonlight-16B-A3B policy's rollout
+at its published size, and holds every CUDA kernel of those paths against
+its plain PyTorch version.  Phases, one line each (flushed); phase 12 runs right
+after phase 2, so that a faulty attention kernel fails within seconds, and
+phases 23 and 24 right after phase 16:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's CUDA.
 2. build: every kernel source under ``mapf_gpt_tpu_torch/csrc``, and the
@@ -262,6 +264,39 @@ after phase 2, so that a faulty attention kernel fails within seconds:
    operands (bf16 out: the old route's products without their fp32
    stores), the LN epilogue beside ``gemm_tile``'s product alone and as a
    multiple of it.  Under a second.
+23. The Moonlight policy's ops (``ops/moe.py`` on ``csrc/moe.cu`` and
+   ``csrc/grouped_gemm.cuh``) and its attention at head width 192
+   (``attention.cu``'s slab route, v zero-padded) against their plain
+   versions on the card (``moe.<op>_plain``, ``attention_einsum``; TF32 off)
+   at the Moonlight cell's shapes: 512 contexts x 256 positions, hidden
+   2048, 64 experts of 1408, top 6.  A 2-layer policy from ``init_params``
+   under ``--seed`` (the dense layer and one MoE layer, its correction bias
+   drawn nonzero); each op fed what the kernels before it gave, in the
+   forward's order: the dense layer whole, the MoE layer's MLP, then its
+   attention as the thinned last layer runs it.  Every element within one
+   bf16 step (2^-7 |ref|) of the plain version plus 1e-3 of the output's
+   rms, and plus one step of each rounding inside the op where it rounds
+   twice (the residual add: one step of the product; SwiGLU: one of the
+   gate, carried through silu, and one of the up); the two attentions
+   within one step plus 0.02 of the rms (their probabilities rounded to
+   bf16), the router's three product terms within 1e-4 of their rms,
+   ``compact`` equal.  The router (``check_route``): each row's chosen set
+   equal to the plain one's but at near-ties within twice the logits'
+   largest gap, the choices in descending order of score, none twice, the
+   weights within 1e-5; the device counter, the segment table, the slots
+   and the experts' input rows exactly what the kernel's own choices give.
+   The grouped products compared on the segments' rows.
+24. The Moonlight-16B-A3B policy whole (27 layers, weights drawn on the card
+   under ``--seed``, 30.6 GB in bf16): one ``make_batch_rollout`` step over
+   16 envs x 32 agents (``random_grid(21, 0.3)``, argmax), the kernels'
+   launch counters (``moe.kernel_launches()``, ``attention.launches``) set
+   to 0 just before and read just after, each exactly its count a forward
+   (``moonlight_launches``) and the GPT kernels' 0; the experts' device
+   counter, every MoE layer's sum its rows x 6; phase 4's invariants.  Then
+   the forward on the step's 512 contexts timed (CUDA events), its peak
+   memory, its device time by kernel (``torch.profiler``), and the host
+   calls that wait for the device inside its 52 ``mapf.moe.*`` spans:
+   none.
 
 Then an ``[expert data]`` line with phases 17-20's numbers, an
 ``[evaluator]`` line with phase 16's, the card's name and power limit, the
@@ -269,7 +304,8 @@ kernels' JSON line (the training kernels' entries with their 85M numbers
 under ``"85M"``, the training attention's three wgmma kernels and the
 backward's two epilogue kernels with theirs under ``"at_85m_shape"``; the
 backward's entry keys its epilogue kernels' device time in the 6M split by
-``profiling.kernel_key``) and, last, ``{"ok": true, "device": {...}}``.
+``profiling.kernel_key``; the ``moe`` entry phases 23 and 24's numbers) and,
+last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero with no result line;
 so it does without a GPU, and outside a checkout of the repository.
 """
@@ -305,9 +341,10 @@ from mapf_gpt_tpu_torch.maps import (MapRegistry, maze_grid, random_grid,  # noq
                                      sample_instance, warehouse_grid)
 from mapf_gpt_tpu_torch.models.convert import (load_model,  # noqa: E402
                                                load_reference_checkpoint)
+from mapf_gpt_tpu_torch.models import moonlight as ml  # noqa: E402
 from mapf_gpt_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig, act,  # noqa: E402
                                            init_params, make_forward)
-from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt  # noqa: E402
+from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt, moe  # noqa: E402
 from mapf_gpt_tpu_torch.ops import attention as tatt  # noqa: E402
 from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt  # noqa: E402
 from mapf_gpt_tpu_torch.ops.cost2go import (INF, relax_fixpoint,  # noqa: E402
@@ -437,6 +474,10 @@ LOSS_DROP_85M = 0.5
 # about 1.4 GB
 MEM_85M_ESTIMATE = 24 * 512 * 256 * 768 * 2 + 3_051_094_016 + 1_400_000_000
 DIST_ITERS = 2                   # the 6M iterations of the world-size-1 --distributed check
+MOON_ENVS = 16                   # the Moonlight cell's envs: x A agents, 512 contexts a step
+# host calls that wait for the device, none of which may run inside a mapf.moe.* span
+MOON_SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "aten::item", "aten::_local_scalar_dense"}
 PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
 PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 MUFU_PER_CLOCK = 16              # exp2s an SM's special-function units issue a clock (sm_90)
@@ -2367,6 +2408,384 @@ def distributed_phase(seed: int, dev, data_dir: str) -> dict:
     return {"losses": runs["distributed"][0], "equal": True}
 
 
+def check_steps(name: str, got: torch.Tensor, ref: torch.Tensor, steps: float = 1.0,
+                floor: float = 1e-3, extra=None, chunk: int = 1 << 15) -> float:
+    """got vs its plain version ref (same shape, rows first), elementwise:
+    within `steps` bf16 steps of ref (2^-7 |ref| each), plus extra(rows) where
+    given (an allowance for a rounding inside the op, for those rows), plus
+    `floor` times the rms of ref, a share of a typical value.  Row chunks
+    bound the memory.  Returns the worst |err| / tol."""
+    if got.shape != ref.shape:
+        raise RuntimeError(f"{name}: kernel output {tuple(got.shape)} not of shape "
+                           f"{tuple(ref.shape)}")
+    g2, r2 = got.reshape(got.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    rms = math.sqrt(sum(r.float().square().sum().item() for r in r2.split(chunk)) / ref.numel())
+    worst = err = 0.0
+    for i in range(0, g2.shape[0], chunk):
+        rows = slice(i, i + chunk)
+        g, r = g2[rows].float(), r2[rows].float()
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"{name}: kernel output not finite")
+        diff = (g - r).abs()
+        tol = steps * 2.0 ** -7 * r.abs() + floor * rms
+        if extra is not None:
+            tol += extra(rows).reshape(tol.shape)
+        worst = max(worst, (diff / tol).max().item())
+        err = max(err, diff.max().item())
+    log(f"[moe] {name}: n={got.shape[0]} max|err|={err:.6f} worst err/tol={worst:.4f} "
+        f"(rms|ref|={rms:.4f}; {steps:g} bf16 steps + {floor:g} rms)")
+    if worst > 1.0:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return worst
+
+
+def swiglu_allowance(gu: torch.Tensor):
+    """extra(rows) of a SwiGLU epilogue, bf16(silu(bf16 g) bf16 u), from the
+    plain product gu (bf16 [rows, 2f], columns in blocks of 8 gate then 8
+    up): one bf16 step of g carried through silu and one of u,
+    2^-7 (|silu'(g) g| + |silu(g)|) |u|."""
+    def extra(rows):
+        x = gu[rows].float()
+        m = x.shape[0]
+        x = x.view(m, -1, 2, 8)
+        g, u = x[:, :, 0].reshape(m, -1), x[:, :, 1].reshape(m, -1)
+        sg = torch.sigmoid(g)
+        return 2.0 ** -7 * ((sg * (1 + g * (1 - sg)) * g).abs() + (sg * g).abs()) * u.abs()
+    return extra
+
+
+def resid_allowance(y: torch.Tensor):
+    """extra(rows) of bf16(r + bf16(a W)): one bf16 step of the plain product y."""
+    return lambda rows: 2.0 ** -7 * y[rows].float().abs()
+
+
+def both(op: str, *args):
+    """ops/moe's `op` on the kernels, then its plain version, on the same inputs."""
+    return getattr(moe, op)(*args), getattr(moe, op + "_plain")(*args)
+
+
+def router_z(logits3: torch.Tensor, x: int) -> torch.Tensor:
+    """The router's fp32 logits from its three terms, summed as the kernel sums them."""
+    return (logits3[:, 2 * x:] + logits3[:, x:2 * x]) + logits3[:, :x]
+
+
+def check_route(got, want, b: torch.Tensor, z: torch.Tensor, z_gap: float, bias: torch.Tensor,
+                counter: torch.Tensor, scratch: torch.Tensor, cfg) -> dict:
+    """The router's kernels (topk, route_offsets, scatter) against the plain
+    route on the same rows, with eps = 2 z_gap + 1e-6 (z_gap the logits'
+    largest gap to the plain ones, which can swap two scores that close):
+    each row's chosen set equal to the plain one's but where the plain k-th
+    and (k+1)-th biased scores lie within eps; the choices in descending
+    order of the plain biased score, within eps; no row choosing an expert
+    twice or one outside [0, X); the weights within 1e-5, expert by expert,
+    where the sets are equal.  And the kernels against their own choices,
+    exactly: the device counter and the segment table from the choices'
+    counts (the table equal to the plain one's when no set differs), every
+    pair's slot distinct and inside its expert's segment, the experts' input
+    row at each slot the token's row, the scratch's counts zero again."""
+    a, table, slot, w, idx = got
+    _, ptable, _, pw, pidx = want
+    x, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    idx, pidx = idx.long(), pidx.long()
+    if ((idx < 0) | (idx >= x)).any() or (idx.sort(-1).values.diff(dim=-1) == 0).any():
+        raise RuntimeError("route: a row chooses an expert outside [0, X) or one twice")
+    eps = 2 * z_gap + 1e-6
+    biased = torch.sigmoid(z) + bias
+    mine, plain_ = idx.sort(-1), pidx.sort(-1)
+    differ = (mine.values != plain_.values).any(-1)
+    out = {"rows": int(idx.shape[0]), "sets_differ": int(differ.sum()),
+           "order_differs": int(((idx != pidx).any(-1) & ~differ).sum()), "tie_eps": eps}
+    sel = biased.gather(1, idx)
+    out["largest_rise_in_order"] = (sel[:, 1:] - sel[:, :-1]).max().item()
+    if out["largest_rise_in_order"] > eps:
+        raise RuntimeError(f"route: choices not in descending order of score: {out}")
+    if out["sets_differ"]:
+        ranked = biased.sort(-1, descending=True).values
+        margin = (ranked[:, k - 1] - ranked[:, k])[differ]
+        out["largest_margin_of_a_differing_set"] = margin.max().item()
+        if margin.max().item() > eps:
+            raise RuntimeError(f"route: chosen sets differ from the plain version's on a row "
+                               f"that is no near-tie: {out}")
+    ws, pws = w.gather(1, mine.indices), pw.gather(1, plain_.indices)
+    out["w_err"] = (ws[~differ] - pws[~differ]).abs().max().item()
+    if out["w_err"] > 1e-5:
+        raise RuntimeError(f"route: weights off the plain version's by {out['w_err']}")
+    counts = torch.bincount(idx.flatten(), minlength=x)
+    tiles = (counts + moe.BM - 1) // moe.BM
+    tile_start = torch.cat([tiles.new_zeros(1), tiles.cumsum(0)])
+    own_table = torch.cat([tile_start, tile_start[:-1] * moe.BM]).int()
+    if not torch.equal(counter, counts) or not torch.equal(table, own_table):
+        raise RuntimeError("route: the device counter or the segment table is not the "
+                           "choices' counts")
+    if not out["sets_differ"] and not torch.equal(table, ptable):
+        raise RuntimeError("route: the segment table differs from the plain version's")
+    sl = slot.long()
+    row0 = own_table[x + 1:].long()
+    inside = (sl >= row0[idx]) & (sl < row0[idx] + counts[idx])
+    if not inside.all() or (sl.flatten().sort().values.diff() == 0).any():
+        raise RuntimeError("route: a pair's slot lies outside its expert's segment or is shared")
+    if not torch.equal(a[sl.flatten()], b.repeat_interleave(k, dim=0)):
+        raise RuntimeError("route: the experts' input rows are not the tokens' rows")
+    if (scratch[:x] != 0).any():
+        raise RuntimeError("route: the scratch's counts are not zero after the route")
+    out["load_max_over_mean"] = (counts.max() / counts.float().mean()).item()
+    log(f"[moe] route: {json.dumps(out)}")
+    return out
+
+
+def moe_attention(h: torch.Tensor, lay, cfg, n: int, rope_cs) -> tuple[torch.Tensor, dict]:
+    """One MLA block at every position, each op against its plain version on
+    the inputs the kernels before it gave.  Returns (h after the block, the
+    worst err / tol by op)."""
+    hh, d, dn, dv, r = (cfg.n_head, cfg.head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    t, eps = cfg.block_size, cfg.rms_norm_eps
+    worst = {}
+    a, want = both("rms_norm", h, lay["ln1"], eps)
+    worst["rms_norm"] = check_steps("rms_norm (attention)", a, want)
+    kva, want = both("linear", a, lay["wkva"])
+    worst["linear"] = check_steps(f"linear {tuple(a.shape)} x {tuple(lay['wkva'].shape)}",
+                                  kva, want)
+    c, want = both("rms_norm", kva[:, :r], lay["kv_ln"], eps)
+    worst["rms_norm_latent"] = check_steps("rms_norm (the latent, a strided view)", c, want)
+    kv, want = both("linear", c, lay["wkvb"])
+    check_steps(f"linear {tuple(c.shape)} x {tuple(lay['wkvb'].shape)}", kv, want)
+    q, want = both("linear", a, lay["wq"])
+    check_steps(f"linear {tuple(a.shape)} x {tuple(lay['wq'].shape)}", q, want)
+    qp, kvp = q.clone(), kv.clone()
+    moe.rope(q, kva, kv, *rope_cs, hh, d, dn, r, t)
+    moe.rope_plain(qp, kva, kvp, *rope_cs, hh, d, dn, r, t)
+    worst["rope"] = max(check_steps("rope q", q, qp), check_steps("rope k (into k|v)", kv, kvp))
+    del qp, kvp
+    kvh = kv.view(n, t, hh, 2 * d)
+    qkv = (q.view(n, t, hh, d).transpose(1, 2), kvh[..., :d].transpose(1, 2),
+           kvh[..., d:].transpose(1, 2))
+    scale = 1.0 / math.sqrt(d)
+    tatt.launches = 0
+    o = tatt.attention_pallas(*qkv, scale)
+    if tatt.launches != 1:
+        raise RuntimeError(f"attention D={d}: {tatt.launches} launches, expected 1")
+    worst["attention"] = check_steps(
+        f"attention [{n}, {hh}, {t}, {d}] bf16 ({attention_route(t, d, torch.bfloat16)}), "
+        "strided views of q and k|v, v zero-padded", o, tatt.attention_einsum(*qkv, scale),
+        floor=0.02)
+    o3 = o.transpose(1, 2).reshape(n * t, hh, d)
+    oc, want = both("compact", o3, dv)
+    if not torch.equal(oc, want):
+        raise RuntimeError("compact: differs from its plain version")
+    del o, o3, q, kv, kvh, qkv
+    y = moe.linear_plain(oc, lay["wo"])
+    h2, want = moe.linear(oc, lay["wo"], h.clone()), moe.linear_plain(oc, lay["wo"], h.clone())
+    worst["linear_resid"] = check_steps("linear + residual (the output projection)", h2, want,
+                                        extra=resid_allowance(y))
+    return h2, worst
+
+
+def moe_ops_phase(seed: int, dev) -> dict:
+    """23. The Moonlight policy's ops (ops/moe.py) and its attention at D =
+    192 on the card against their plain versions (the ``_plain`` functions) at the
+    Moonlight cell's shapes: 512 contexts x 256 positions, hidden 2048, 64
+    experts of 1408, top 6.  Weights of a 2-layer policy from init_params
+    under --seed (the dense layer and one MoE layer, its correction bias
+    drawn nonzero); each op is fed what the kernels before it gave, in the
+    forward's order: the dense layer whole, the MoE layer's MLP, then its
+    attention as the thinned last layer runs it."""
+    cfg = dataclasses.replace(ml.CONFIGS["Moonlight-16B-A3B"], n_layer=2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = ml.init_params(cfg, gen)
+    x, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    hh, d, dn, dv, r = (cfg.n_head, cfg.head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    bias = torch.randn(x, generator=gen, device=dev) * 0.01
+    sd["model.layers.1.mlp.gate.e_score_correction_bias"] = bias
+    model = ml.load_state(cfg, sd, device=dev)
+    n, t, eps = MOON_ENVS * A, cfg.block_size, cfg.rms_norm_eps
+    rope_cs = (model.rope_cos, model.rope_sin)
+    tokens = torch.randint(0, cfg.vocab_size, (n, t), generator=gen, device=dev)
+    h = model.embed[tokens.reshape(-1)]
+    log(f"[moe] ops at {n} contexts x {t}: {n * t} rows, {x} experts of "
+        f"{cfg.moe_intermediate_size}, top {k}")
+    # the dense layer
+    lay = model.layers[0]
+    h, worst = moe_attention(h, lay, cfg, n, rope_cs)
+    b, want = both("rms_norm", h, lay["ln2"], eps)
+    check_steps("rms_norm (MLP)", b, want)
+    gu = moe.linear_plain(b, lay["wgu"])
+    hm, want = both("swiglu", b, lay["wgu"])
+    worst["swiglu_dense"] = check_steps(f"swiglu dense {tuple(b.shape)} x "
+                                        f"{tuple(lay['wgu'].shape)}", hm, want,
+                                        extra=swiglu_allowance(gu))
+    del gu
+    y = moe.linear_plain(hm, lay["wd"])
+    h2, want = moe.linear(hm, lay["wd"], h.clone()), moe.linear_plain(hm, lay["wd"], h.clone())
+    check_steps(f"linear + residual {tuple(hm.shape)} x {tuple(lay['wd'].shape)}", h2, want,
+                extra=resid_allowance(y))
+    h = h2
+    del hm, y, want, h2
+    # the MoE layer's MLP
+    lay = model.layers[1]
+    b, want = both("rms_norm", h, lay["ln2"], eps)
+    check_steps("rms_norm (MoE)", b, want)
+    l3, want = both("router_logits", b, lay["wr3"])
+    worst["router_logits"] = max(check_steps(f"router logits, term {j}", l3[:, j * x:(j + 1) * x],
+                                             want[:, j * x:(j + 1) * x], steps=0, floor=1e-4)
+                                 for j in range(3))
+    z = router_z(want, x)
+    z_gap = (router_z(l3, x) - z).abs().max().item()
+    del l3, want
+    scratch = torch.zeros(2 * x, dtype=torch.int32, device=dev)
+    counter = torch.zeros(x, dtype=torch.int64, device=dev)
+    got = moe.route(b, lay["wr3"], lay["bias"], k, cfg.routed_scaling_factor, scratch, counter)
+    want = moe.route_plain(b, lay["wr3"], lay["bias"], k, cfg.routed_scaling_factor)
+    route = check_route(got, want, b, z, z_gap, lay["bias"], counter, scratch, cfg)
+    del want, z
+    a, table, slot, w, _ = got
+    used = torch.zeros(a.shape[0], dtype=torch.bool, device=dev)
+    used[slot.long().flatten()] = True
+    a[~used] = 0                                  # the segments' padding rows: read, not used
+    end = int(table[x]) * moe.BM                  # rows past the last segment: never written
+    gu = moe.grouped_plain(a, lay["wgu"], table, x)
+    hm, want = both("swiglu", a, lay["wgu"], table, x)
+    worst["swiglu_experts"] = check_steps(
+        f"swiglu grouped {tuple(a.shape)} x {x} x {tuple(lay['wgu'].shape[1:])}, the "
+        f"segments' {end} rows", hm[:end], want[:end], extra=swiglu_allowance(gu[:end]))
+    del gu, want, a
+    y, want = both("grouped", hm, lay["wd"], table, x)
+    worst["grouped"] = check_steps(f"grouped {tuple(hm.shape)} x {x} x "
+                                   f"{tuple(lay['wd'].shape[1:])}, the segments' rows",
+                                   y[:end], want[:end])
+    del hm, want
+    gu = moe.linear_plain(b, lay["wsgu"])
+    hs, want = both("swiglu", b, lay["wsgu"])
+    check_steps(f"swiglu shared {tuple(b.shape)} x {tuple(lay['wsgu'].shape)}", hs, want,
+                extra=swiglu_allowance(gu))
+    del gu
+    ys, want = both("linear", hs, lay["wsd"])
+    check_steps(f"linear {tuple(hs.shape)} x {tuple(lay['wsd'].shape)}", ys, want)
+    h2, want = moe.combine(h.clone(), ys, y, slot, w), moe.combine_plain(h.clone(), ys, y, slot, w)
+    worst["combine"] = check_steps("combine", h2, want)
+    h = h2
+    del y, ys, hs, want, got, b
+    # the MoE layer's attention as the thinned last layer runs it
+    a = moe.rms_norm(h, lay["ln1"], eps)
+    kva = moe.linear(a, lay["wkva"])
+    kv = moe.linear(moe.rms_norm(kva[:, :r], lay["kv_ln"], eps), lay["wkvb"])
+    kvp = kv.clone()
+    moe.rope(None, kva, kv, *rope_cs, hh, d, dn, r, t)
+    moe.rope_plain(None, kva, kvp, *rope_cs, hh, d, dn, r, t)
+    check_steps("rope k alone (thinned layer)", kv, kvp)
+    del kvp
+    ql, want = both("linear", a.view(n, t, -1)[:, -1], lay["wq"])
+    check_steps("linear, the last position's rows (a strided view)", ql, want)
+    qp = ql.clone()
+    moe.rope(ql, None, None, *rope_cs, hh, d, dn, r, t, fixed=t - 1)
+    moe.rope_plain(qp, None, None, *rope_cs, hh, d, dn, r, t, fixed=t - 1)
+    check_steps("rope q at the last position", ql, qp)
+    scale = 1.0 / math.sqrt(d)
+    ot, want = both("thin_attention", ql, kv, hh, d, dv, t, scale)
+    worst["thin_attention"] = check_steps(f"thin_attention [{n}, {hh}, {t}, {d}]", ot, want,
+                                          floor=0.02)
+    last = h.view(n, t, -1)[:, -1].contiguous()
+    y = moe.linear_plain(ot, lay["wo"])
+    h2 = moe.linear(ot, lay["wo"], last.clone())
+    want = moe.linear_plain(ot, lay["wo"], last.clone())
+    check_steps("linear + residual (thinned layer's output projection)", h2, want,
+                extra=resid_allowance(y))
+    del model, sd
+    torch.cuda.empty_cache()
+    return {"worst_err_over_tol": worst, "route": route}
+
+
+def moonlight_launches(cfg) -> dict[str, int]:
+    """Each kernel's launches in one forward of the policy, the last layer
+    thinned (ops/moe's counters by op, and the attention kernel's)."""
+    layers, dense = cfg.n_layer, cfg.first_k_dense_replace
+    routed, full = layers - dense, layers - 1
+    return {"rms_norm": 3 * layers, "linear": 4 * layers + dense + 2 * routed,
+            "swiglu": dense + 2 * routed, "grouped": routed, "topk": routed,
+            "offsets": routed, "scatter": routed, "combine": routed, "rope": full + 2,
+            "compact": full, "thin_attention": 1, "attention": full}
+
+
+def moonlight_phase(seed: int, dev) -> dict:
+    """24. The Moonlight-16B-A3B policy at its published size, weights drawn
+    on the card under --seed: one make_batch_rollout step over the cell's
+    16 envs x 32 agents, argmax; the kernels' launch counters set to 0 just
+    before it and read just after against moonlight_launches; the experts'
+    device counter, every MoE layer's sum its rows x top k; the step's
+    invariants.  Then the forward on the step's 512 contexts timed (CUDA
+    events), its device time by kernel, its peak memory, and the host calls
+    that wait for the device inside the mapf.moe.* spans: none."""
+    cfg = ml.CONFIGS["Moonlight-16B-A3B"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = ml.MoonlightPolicy(cfg, device=dev)
+    embed = ml.draw_globals(cfg, gen, "embed")
+    for i in range(cfg.n_layer):
+        model.load_layer(i, ml.draw_layer(cfg, i, gen))
+    model.load_globals(embed | ml.draw_globals(cfg, gen, "head"))
+    model.eval()
+    torch.cuda.synchronize()
+    out = {"weights_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "load_s": time.perf_counter() - t0}
+    spec, states, tokens = reset_batch(seed, MOON_ENVS, 1, dev)
+    run = make_batch_rollout(spec, model, do_sample=False)
+    torch.cuda.synchronize()
+    moe.reset_kernel_launches()
+    fused_gpt.launches = fused_blocks.launches = tatt.launches = 0
+    t0 = time.perf_counter()
+    final, met = run(states)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    got = {**moe.kernel_launches(), "attention": tatt.launches}
+    want = moonlight_launches(cfg)
+    log(f"[moe] Moonlight rollout step, {MOON_ENVS} envs x {A} agents: {out['step_s']:.3f} s "
+        f"(first call), launches {got}")
+    if got != want or fused_gpt.launches or fused_blocks.launches:
+        raise RuntimeError(f"Moonlight step: launches {got}, expected {want} (and no GPT "
+                           "kernel)")
+    check_rollout(final, met, 1)
+    n, t, k = tokens.shape[0], cfg.block_size, cfg.num_experts_per_tok
+    dense = cfg.first_k_dense_replace
+    rows = [0] * dense + [n * t * k] * (cfg.n_layer - dense - 1) + [n * k]
+    if model.expert_counts.sum(1).tolist() != rows:
+        raise RuntimeError(f"Moonlight step: the experts' counter reads "
+                           f"{model.expert_counts.sum(1).tolist()}, expected {rows}")
+    forward = model.policy_forward()
+    torch.cuda.reset_peak_memory_stats()
+    out["forward_ms"] = cuda_ms(lambda: forward(tokens), 3)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        forward(tokens)
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == torch.autograd.DeviceType.CPU]   # not the ranges' copies
+    spans = [(ev.start_ns(), ev.end_ns()) for ev in events if ev.name().startswith("mapf.moe.")]
+    waits = sorted({ev.name() for ev in events if ev.name() in MOON_SYNCS
+                    and any(s <= ev.start_ns() <= f for s, f in spans)})
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not ev.key.startswith("mapf."):
+            key = profiling.kernel_key(ev.key)
+            kernels[key] = kernels.get(key, 0.0) + dev_us / 1e3
+    out["kernels_ms"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+    log(f"[moe] Moonlight forward on {n} contexts: {out['forward_ms']:.1f} ms, peak "
+        f"{out['peak_memory_bytes'] / 1e9:.2f} GB, weights {out['weights_bytes'] / 1e9:.2f} GB; "
+        f"{len(spans)} mapf.moe spans, host waits inside them {waits}; device ms by kernel "
+        f"{json.dumps(out['kernels_ms'])}")
+    if len(spans) != 2 * (cfg.n_layer - dense) or waits:
+        raise RuntimeError(f"Moonlight forward: {len(spans)} mapf.moe spans, host waits "
+                           f"inside them {waits}")
+    out["launches_per_step"] = got
+    del model, run, forward
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2496,6 +2915,13 @@ def main() -> int:
     # 20. --distributed at world size 1
     del model_2m, model_6m
     torch.cuda.empty_cache()
+
+    # 23. the Moonlight policy's ops at its cell's shapes; 24. its rollout step
+    moe_ops = moe_ops_phase(args.seed, dev)
+    entries.append({"name": "moe", "model": "Moonlight-16B-A3B", "route": "cuda",
+                    "source": "mapf_gpt_tpu_torch/csrc/moe.cu, csrc/grouped_gemm.cuh",
+                    "n_contexts": MOON_ENVS * A, **moonlight_phase(args.seed, dev), **moe_ops})
+    log(f"[done] Moonlight phases {time.perf_counter() - t_start:.1f} s")
     slice_out = {"seconds": {}}
 
     def timed_phase(name: str, fn):

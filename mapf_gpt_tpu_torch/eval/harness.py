@@ -107,12 +107,18 @@ def context_bytes(model_cfg, hw: tuple[int, int], kq: int, lazy: bool) -> int:
     in every lazy step), its tokens and the observation's work tensors
     (int64 [256] a few times over), and the policy's residual stream and
     per-layer work for one context (bf16 [T, E] times the q|k|v, attention
-    and MLP widths, 9E)."""
+    and MLP widths, 9E; a policy whose config gives
+    ``forward_bytes_per_context()`` counts that instead)."""
     cells = hw[0] * hw[1]
     fields = 4 * cells * (1 if lazy else kq)
     relax = 5 * 8 * cells                # keys, offsets and the sweeps' outputs
     tokens = 8 * 256 * 8
-    forward = 0 if model_cfg is None else 2 * model_cfg.block_size * 9 * model_cfg.n_embd
+    if model_cfg is None:
+        forward = 0
+    elif hasattr(model_cfg, "forward_bytes_per_context"):
+        forward = model_cfg.forward_bytes_per_context()
+    else:
+        forward = 2 * model_cfg.block_size * 9 * model_cfg.n_embd
     return fields + relax + tokens + forward
 
 

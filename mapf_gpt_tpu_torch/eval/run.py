@@ -21,6 +21,10 @@ the device instead (``--batch-envs``).
 checkpoint's size: inferred from ``path_to_weights`` when not given, checked
 against the config a checkpoint holds (a mismatch exits naming both), and
 naming a trainer directory's rows ``MAPF-GPT-<size>-ckpt``.
+
+``--random-init NAME`` takes a ``CONFIGS`` size or a policy of another
+family by its name (``models/moonlight.CONFIGS``: ``Moonlight-16B-A3B``),
+its weights drawn from seed 0 on ``--device``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mapf_gpt_tpu_torch.eval.harness import (
     Evaluator, expand_grid_search, plot_view, tabular_view)
 from mapf_gpt_tpu_torch.maps import MapRegistry
 from mapf_gpt_tpu_torch.models.gpt import CONFIGS
+from mapf_gpt_tpu_torch.models import moonlight
 
 MASK_KEYS = ("mask_actions_history", "mask_cost2go", "mask_goal",
              "mask_greed_action")
@@ -122,6 +127,10 @@ def load_policy(args, algo_cfg: dict | None = None):
                         args.model = size
                         break
     model = getattr(args, "model", None)
+    if args.random_init in moonlight.CONFIGS:
+        cfg = moonlight.CONFIGS[args.random_init]
+        sd = moonlight.init_params(cfg, torch.Generator(device=args.device).manual_seed(0))
+        return moonlight.load_state(cfg, sd, device=args.device), f"{args.random_init}-random"
     if args.random_init:
         cfg = CONFIGS[args.random_init]
         sd = init_params(cfg, torch.Generator().manual_seed(0))
@@ -151,7 +160,7 @@ def main(argv=None):
                    help="a reference-layout .pt file or a trainer's output directory")
     p.add_argument("--model", default=None, choices=list(CONFIGS),
                    help="the checkpoint's size (inferred from path_to_weights)")
-    p.add_argument("--random-init", default=None, choices=list(CONFIGS))
+    p.add_argument("--random-init", default=None, choices=list(CONFIGS) + list(moonlight.CONFIGS))
     p.add_argument("--algo", default=None,
                    help="key into the suite yaml's algorithms block")
     p.add_argument("--weights-root", default=None,

@@ -203,6 +203,10 @@ def make_forward(model: GPT, use_fused: bool | None = None):
     """Inference forward: tokens [N, T] -> logits [N, vocab] at the last
     position.
 
+    A policy of another family (``models/moonlight.MoonlightPolicy``) gives
+    its own: its ``policy_forward()``, its kernels on CUDA and their plain
+    versions on the CPU (`use_fused` is for the GPT's routes).
+
     The route is :func:`uses_fused`'s unless `use_fused` says otherwise.
     Fused: the hand-written kernels through ``ops/fused_gpt.fused_logits``
     on weights stacked once here (the e2e kernel for the 2M and 6M, the
@@ -211,6 +215,8 @@ def make_forward(model: GPT, use_fused: bool | None = None):
     itself, on the model's device: erf GELU, biases, and on CUDA with
     ``attn_impl="pallas"`` the attention kernel once a layer.  No autograd
     graph is built."""
+    if not isinstance(model, GPT):
+        return model.policy_forward()
     cfg = model.cfg
     if use_fused is None:
         use_fused = uses_fused(cfg, model.lm_head.weight.device.type)

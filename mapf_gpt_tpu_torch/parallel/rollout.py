@@ -13,11 +13,14 @@ B*A contexts (on CUDA one launch of the fused kernel) -> act -> step.
 - :func:`make_recorded_rollout` runs one instance and also returns its
   trajectory (animation export).
 - :func:`batch_reset` resets stacked instances.
+
+The policy is a ``models.gpt.GPT`` or a ``models.moonlight.MoonlightPolicy``;
+``models.gpt.make_forward`` gives each family's forward.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import torch
 
@@ -27,6 +30,9 @@ from mapf_gpt_tpu_torch.models.gpt import GPT, act, make_forward
 from mapf_gpt_tpu_torch.ops.masking import MaskConfig, apply_masks
 from mapf_gpt_tpu_torch.ops.obs import observe
 from mapf_gpt_tpu_torch.utils.profiling import span
+
+if TYPE_CHECKING:
+    from mapf_gpt_tpu_torch.models.moonlight import MoonlightPolicy
 
 
 def _tokens_of(state: menv.EnvState, mask_cfg: MaskConfig | None = None) -> torch.Tensor:
@@ -56,8 +62,8 @@ def replay_rollout(spec: menv.MapfEnvSpec, state: menv.EnvState,
     return torch.stack(positions), torch.stack(tokens)
 
 
-def make_batch_rollout(spec: menv.MapfEnvSpec, model: GPT, do_sample: bool = True,
-                       policy_batch: int | None = None,
+def make_batch_rollout(spec: menv.MapfEnvSpec, model: GPT | MoonlightPolicy,
+                       do_sample: bool = True, policy_batch: int | None = None,
                        mask_cfg: MaskConfig | None = None) -> Callable:
     """Build a full-episode runner over a batch of env instances.
 
@@ -93,8 +99,8 @@ def batch_reset(spec: menv.MapfEnvSpec, grids, starts, goals_queues, actives,
     return menv.reset(spec, grids, starts, goals_queues, actives, device=device)
 
 
-def make_recorded_rollout(spec: menv.MapfEnvSpec, model: GPT, do_sample: bool = True,
-                          mask_cfg: MaskConfig | None = None) -> Callable:
+def make_recorded_rollout(spec: menv.MapfEnvSpec, model: GPT | MoonlightPolicy,
+                          do_sample: bool = True, mask_cfg: MaskConfig | None = None) -> Callable:
     """Single-instance episode runner that also records the trajectory.
 
     Returns run(state, generator=None) -> (final_state, metrics, positions

@@ -39,7 +39,9 @@ assert {{"mapf_gpt_tpu_torch.ops.attention", "mapf_gpt_tpu_torch.ops.fused_gpt",
          "mapf_gpt_tpu_torch.dataset.expert", "mapf_gpt_tpu_torch.dataset.generate",
          "mapf_gpt_tpu_torch.dataset.solve", "mapf_gpt_tpu_torch.dataset.download",
          "mapf_gpt_tpu_torch.dataset._lacam_build", "mapf_gpt_tpu_torch.parallel.mesh",
-         "mapf_gpt_tpu_torch.tools.mp_worker"}} <= set(names), names
+         "mapf_gpt_tpu_torch.tools.mp_worker", "mapf_gpt_tpu_torch.ops.moe",
+         "mapf_gpt_tpu_torch.models.moonlight",
+         "mapf_gpt_tpu_torch.models.moonlight_reference"}} <= set(names), names
 import chip_smoke
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "flax", "mapf_gpt_tpu", "yaml", "matplotlib",
