@@ -44,14 +44,13 @@ phases 23 and 24 right after phase 16:
    env, metrics in range, and the e2e kernel's launch counter exactly one
    per step (the layer-stack and attention kernels' 0).  Prints CSR, ISR,
    SoC and env-steps/s.
-5. 2M timing: the kernel on the rollout's 512 contexts beside a whole
-   rollout step and its bound; then one forward at 8192 contexts (the
-   rollout benchmark's 256 envs x 32 agents), kernel and plain version,
-   beside the card's bound and the special-function floor (the
-   attention's exp2s and GELU's ex2 and reciprocal, ``e2e_mufu_ms``).
+5. 2M timing: the kernel alone at 8192 contexts (the rollout benchmark's
+   256 envs x 32 agents) beside the card's bound and the special-function
+   floor (the attention's exp2s and GELU's ex2 and reciprocal,
+   ``e2e_mufu_ms``).
 6. 6M: phases 3-5 for the trained 6M (``checkpoints/MAPF-GPT-6M-r5.pt``,
    E=256) through the same e2e kernel: 512 contexts compared, T = 200, the
-   same 16 x 32 x 64 rollout, timing at 512 and 8192 contexts.  Then the
+   same 16 x 32 x 64 rollout, timing at 8192 contexts.  Then the
    e2e kernel at the shapes it takes beyond the 2M's and 6M's
    (``E2E_SHAPES``: head dims 16, 64 and 128, 12 heads, T = 130 and 1,
    n_embd 144), random weights, 300 contexts each, phase 3's tolerances,
@@ -79,8 +78,9 @@ phases 23 and 24 right after phase 16:
    4 heads of 258 columns, run in three slabs of 96), both ways of
    ``last_only``, the repaired widths' stacks timed at 256 contexts; a 4 x 32 x 32
    rollout with the layer-stack counter exactly one per step and the e2e
-   counter 0; timing at 2048 contexts (the JAX harness's 85M cap) and the
-   stack's device time by kernel (``torch.profiler``).
+   counter 0; the stack alone and the whole forward timed at 2048 contexts
+   (the JAX harness's 85M cap) and the stack's device time by kernel
+   (``torch.profiler``).
 8. Widths built on demand: eight widths no published model has, random
    weights from ``init_params``, 64 contexts each against
    ``fused_logits_reference`` with phase 3's tolerances: E=192/6 heads/4
@@ -91,7 +91,7 @@ phases 23 and 24 right after phase 16:
    128 admit: E=320/10 (n_embd not a multiple of 128), 384/4 (head dim 96),
    4 layers each, and 512/32/12 (head dim 16, chunked route); each kernel's
    counter exactly one.  Each width's whole forward timed at 2048 contexts
-   beside its plain version and its bound.
+   beside its bound.
 9. Training kernels (``csrc/fused_train.cu``) against their plain versions
    on the reset batch's tokens: the trained 2M on 512 contexts (two groups
    of 256) and the 6M on 300 (a group of 256 and one of 44), at full width
@@ -128,8 +128,7 @@ phases 23 and 24 right after phase 16:
    newest checkpoint loads with ``load_reference_checkpoint`` and drives
    one rollout step through the e2e kernel.
 11. Training timing: one forward + backward of the 6M at the reference
-   micro-batch of 2048 contexts, the kernels alone and the whole
-   ``fused_loss_fn`` + backward, beside the plain versions and the bound;
+   micro-batch of 2048 contexts, the kernels alone, beside their bounds;
    the backward's device time by kernel (``torch.profiler``), its epilogue
    kernels' launches counted around one call; the backward workspace's
    bytes; the trainer's it/s and MFU.
@@ -167,12 +166,12 @@ phases 23 and 24 right after phase 16:
    on the rollout's 512 contexts timed beside a rollout step.
 15. Attention timing by CUDA events at [8192, 5, 256, 32] (the 2M rollout
    at 256 envs x 32 agents) and [2048, 12, 256, 64] (the 85M at the
-   harness cap), bf16: the kernel, its plain version (in chunks, each
-   chunk held against the kernel's output there, phase 12's tolerance),
-   one ``scaled_dot_product_attention`` call (a yardstick, never on the
-   port's path), the bound and, in the log, the exp2s' floor (16 a clock
-   an SM at the card's highest clock); the kernel, held against the plain
-   version the same way, and the library call again in fp16.  Then the layer stack's attention alone
+   harness cap), bf16: the kernel, held against its plain version in
+   chunks (phase 12's tolerance), one ``scaled_dot_product_attention``
+   call (a yardstick, never on the port's path), the bound and, in the
+   log, the exp2s' floor (16 a clock an SM at the card's highest clock);
+   the kernel, held against the plain version the same way, and the
+   library call again in fp16.  Then the layer stack's attention alone
    (``fused_blocks.blocks_attention``) at [2048, 12, 256, 64], held against
    its plain version and timed beside the same bound, floor and SDPA; and
    the host time of one call of the wrapper at [1, 1, 64, 32] (bf16 encodes
@@ -185,8 +184,8 @@ phases 23 and 24 right after phase 16:
    steps) with lazy and with dense cost2go, whose rows must be equal but
    for ``runtime``, with ``avg_throughput`` above 0; a lazy lifelong
    step split into tokenizer, forward, act and env step (CUDA events),
-   ``relax_fixpoint`` timed alone beside its row-loop plain version
-   (``relax_fixpoint_rows``, the JAX ``lax.scan``'s form; equal); the bench
+   ``relax_fixpoint`` timed alone and held equal to its row-loop plain
+   version (``relax_fixpoint_rows``, the JAX ``lax.scan``'s form); the bench
    workload's step (256 envs x 32 agents) split the same way; and one
    ``make_recorded_rollout`` with ``mask_greed_action`` on.  About 5 s.
 17. The solver: its build seconds (phase 2), then a 21-cell maze with 32
@@ -220,7 +219,7 @@ phases 23 and 24 right after phase 16:
    contexts a call, within 0.02 * max|ref| + 0.02 per channel), each of
    the 12 backward chunks against its plain version (within 0.08 *
    max|ref| + 1e-4, the second launch equal to the first), then timed
-   beside the plain versions and their bounds.
+   beside their bounds.
 20. ``--distributed`` at world size 1 over NCCL: two 6M iterations whose
    losses equal a run without it from the same seed.
 21. The training attention alone (run right after phase 2b), on the
@@ -239,8 +238,8 @@ phases 23 and 24 right after phase 16:
    1e-4; a second backward call equal to the first bit for bit.  Then
    timed at ``TRAIN_ATT_TIME`` ([2048, 8, 256, 32], the 6M's micro-batch;
    [512, 12, 256, 64], the 85M's), its outputs there held against the
-   plain versions chunk by chunk: each kernel beside its bound, the
-   exp2s' floor and the plain version, and the library's flash attention
+   plain versions chunk by chunk: each kernel beside its bound and the
+   exp2s' floor, and the library's flash attention
    on the same inputs (``scaled_dot_product_attention``'s forward, its
    forward plus backward, and the backward alone,
    ``aten._scaled_dot_product_flash_attention_backward`` from the
@@ -259,8 +258,8 @@ phases 23 and 24 right after phase 16:
    update dx_out - dx_in within 1e-3 * max|ref| + 1e-5 (the dx carried in
    left out of the scale, so that the mean terms count), dxb equal to
    bf16(dx_out), dg within 1e-4 * max|ref| + 1e-6, a second call equal to
-   the first bit for bit; then each timed beside its bound and its plain
-   version, the MLP front beside two ``gemm_tile`` products of the same
+   the first bit for bit; then each timed beside its bound, the MLP front
+   beside two ``gemm_tile`` products of the same
    operands (bf16 out: the old route's products without their fp32
    stores), the LN epilogue beside ``gemm_tile``'s product alone and as a
    multiple of it.  Under a second.
@@ -301,6 +300,14 @@ phases 23 and 24 right after phase 16:
    memory, its device time by kernel (``torch.profiler``), and the host
    calls that wait for the device inside its 52 ``mapf.moe.*`` spans:
    none.
+
+Each bound, the least time the card needs for a kernel's products, exp2s
+and bytes, is counted by ``perfbench/frozen.py``, the benchmark's frozen
+yardstick, from the configuration's sizes; the special-function floors
+(``mufu_floor_ms``) are this script's own.  The device time of a whole
+rollout step or loss and backward is the benchmark's cells'
+(``perfbench/run.py``), and the plain versions run here only where a
+compare needs their output.
 
 Then an ``[expert data]`` line with phases 17-20's numbers, an
 ``[evaluator]`` line with phase 16's, the card's name and power limit, the
@@ -363,6 +370,7 @@ from mapf_gpt_tpu_torch.train.data import read_arrow_shard, write_arrow_shard  #
 from mapf_gpt_tpu_torch.train.train_step import TrainConfig, make_train_step  # noqa: E402
 from mapf_gpt_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from mapf_gpt_tpu_torch.utils import profiling  # noqa: E402
+from perfbench import frozen  # noqa: E402
 
 CKPT = os.path.join(ROOT, "checkpoints", "MAPF-GPT-2M-r4.pt")
 CKPT_6M = os.path.join(ROOT, "checkpoints", "MAPF-GPT-6M-r5.pt")
@@ -370,7 +378,6 @@ B, A, STEPS, MAP_SIZE, DENSITY = 16, 32, 64, 21, 0.3
 B_85M, STEPS_85M = 4, 32         # 128 contexts a step
 N_TIME = 8192                    # 256 envs x 32 agents
 N_TIME_85M = 2048                # the JAX harness's 85M context cap
-PLAIN_CHUNK = {"2M": 1024, "6M": 1024, "85M": 256}   # contexts per plain-version call
 WIDTHS = ((192, 6, 4), (384, 6, 8), (512, 8, 12),   # (n_embd, heads, layers) built on demand
           (320, 10, 4), (160, 10, 4), (256, 16, 4), (384, 4, 4), (512, 32, 12))
 # shapes the e2e kernel takes beyond the 2M's and 6M's, (n_embd, heads, layers, T,
@@ -482,10 +489,7 @@ MOON_ENVS = 16                   # the Moonlight cell's envs: x A agents, 512 co
 # host calls that wait for the device, none of which may run inside a mapf.moe.* span
 MOON_SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "aten::item", "aten::_local_scalar_dense"}
-PEAK_BF16 = 989e12               # H100 SXM dense bf16 FLOP/s
-PEAK_FP32 = 67e12                # H100 SXM fp32 FLOP/s outside the tensor cores
 MUFU_PER_CLOCK = 16              # exp2s an SM's special-function units issue a clock (sm_90)
-HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -512,28 +516,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def layer_ops(t: int, e: int, h: int, layers: int, last_only: bool) -> tuple[int, int]:
-    """(bf16 product FLOP, fp32 exp2 count) of a layer stack on one context,
-    the final layer thinned to one query row when last_only."""
-    f = 4 * e
-    full = 2 * t * e * 3 * e + 2 * 2 * t * t * e + 2 * t * e * e + 2 * 2 * t * e * f
-    last = 2 * t * e * 2 * e + 2 * e * e + 2 * 2 * t * e + 2 * e * e + 2 * 2 * e * f
-    if not last_only:
-        return layers * full, layers * h * t * t
-    return (layers - 1) * full + last, (layers - 1) * h * t * t + h * t
-
-
-def bound(bf16_ops: float, fp32_ops: float, nbytes: float) -> tuple[float, str]:
-    """Least time (ms) for this work on the card, and what bounds it."""
-    t_ops = bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def sizes(cfg) -> dict:
+    """A GPTConfig's sizes as perfbench/frozen.py takes a configuration."""
+    return {"n_layer": cfg.n_layer, "n_head": cfg.n_head, "n_embd": cfg.n_embd,
+            "block_size": cfg.block_size, "vocab_size": cfg.vocab_size}
 
 
 def mufu_floor_ms(exps: float) -> float:
     """Least time (ms) of `exps` exp2s on the special-function units: 16 a
-    clock an SM at the card's highest SM clock (nvidia-smi).  bound() counts
-    them at the fp32 rate, 16x too cheaply for the attention's; it stays as
+    clock an SM at the card's highest SM clock (nvidia-smi).  frozen.bound()
+    counts them at the fp32 rate, 16x too cheaply for the attention's; it stays as
     it is, so that earlier rows stay comparable, and this floor sits beside
     it."""
     mhz = float(subprocess.run(
@@ -545,21 +537,6 @@ def mufu_floor_ms(exps: float) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
-
-
-def e2e_bound(n: int, w: fused_gpt.FusedWeights, t: int) -> tuple[float, str]:
-    """Least time (ms) of the e2e forward on n contexts, and what bounds it.
-
-    Operations: the bf16 products the forward needs (the last layer thinned
-    to one query row) at the bf16 tensor rate, plus the fp32 head and one
-    exp2 per attention score at the fp32 rate.  Bytes: tokens and the
-    weights the kernel reads once, logits written once."""
-    layers, e, _ = w.wqkv.shape
-    vocab = w.wte.shape[0]
-    prod, exps = layer_ops(t, e, w.n_head, layers, last_only=True)
-    io_bytes = n * t * 4 + n * vocab * 4
-    weights = nbytes(w.wte, w.wpe, w.wht, *w.stacks()[:6], w.gf)
-    return bound(n * prod, n * (exps + 2 * e * vocab), weights + io_bytes)
 
 
 def e2e_mufu_ms(n: int, w: fused_gpt.FusedWeights, t: int) -> float:
@@ -610,17 +587,6 @@ def tile_ptxas(log_text: str) -> list[tuple[str, str, int, int, int]]:
             out.append((*name, int(m.group(1)), *spills))
             name = None
     return out
-
-
-def blocks_bound(n: int, stacks: fused_blocks.LayerStacks, t: int,
-                 last_only: bool) -> tuple[float, str]:
-    """Least time (ms) of the layer stack on n contexts: its bf16 products
-    and exp2s, against x read once, the output written once and the
-    weights read once."""
-    layers, e, _ = stacks.wqkv.shape
-    prod, exps = layer_ops(t, e, stacks.n_head, layers, last_only)
-    io_bytes = n * t * e * 2 + n * (1 if last_only else t) * e * 2
-    return bound(n * prod, n * exps, nbytes(*stacks[:6]) + io_bytes)
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, floor: float,
@@ -750,33 +716,25 @@ def e2e_model(label: str, model, seed: int, dev) -> dict:
     rand = random_tokens(seed, B * A, cfg, dev)
     max_err = max(compare(f"{label} random tokens", w, rand),
                   compare(f"{label} reset-batch tokens", w, real))
-    dt, (launches, _, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
+    _, (launches, _, _) = rollout(label, spec, model, states, B, STEPS, e2e=STEPS, blocks=0)
 
     # T = 200 on the trained weights, 300 contexts (a partial wave of the grid)
     short = random_tokens(seed + 1, N_E2E_SHAPES, cfg, dev)[:, :200].contiguous()
     max_err = max(max_err, compare(f"{label} random tokens, T=200", w, short))
 
-    # timing: the rollout's own 512 contexts, then the benchmark's 8192
-    ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=10)
-    bound_step, _ = e2e_bound(real.shape[0], w, cfg.block_size)
-    log(f"[timing] {label} N={real.shape[0]}: kernel {ms_step:.3f} ms of a "
-        f"{1e3 * dt / STEPS:.3f} ms rollout step, bound {bound_step:.3f} ms, "
-        f"{100 * bound_step / ms_step:.2f} % of bound, special-function floor "
-        f"{e2e_mufu_ms(real.shape[0], w, cfg.block_size):.3f} ms")
+    # timing: the kernel alone at the benchmark's 8192 contexts
     tokens = real.repeat(N_TIME // real.shape[0], 1)
     ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=5)
-    plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
-                                for c in tokens.split(PLAIN_CHUNK[label])], reps=2)
-    bound_ms, bound_by = e2e_bound(N_TIME, w, cfg.block_size)
-    log(f"[timing] {label} N={N_TIME}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    bound_ms, bound_by = frozen.e2e_bound(sizes(cfg), N_TIME)
+    log(f"[timing] {label} N={N_TIME}: kernel {ms:.3f} ms, "
         f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound, "
         f"special-function floor {e2e_mufu_ms(N_TIME, w, cfg.block_size):.3f} ms")
     return {"name": "fused_gpt_e2e", "model": label, "route": "cuda",
             "source": "mapf_gpt_tpu_torch/csrc/fused_gpt.cu",
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:182",
-            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "n_contexts": N_TIME, "ms_at_512": ms_step, "bound_ms_at_512": bound_step}
+            "n_contexts": N_TIME}
 
 
 def e2e_shapes_phase(seed: int, dev) -> float:
@@ -814,7 +772,7 @@ def block_shapes_phase(seed: int, dev) -> float:
     """The layer-stack kernel alone at BLOCK_SHAPES, random weights from
     init_params, both ways of last_only, against blocks_reference (stream
     within atol 0.02 * max|ref|); the repaired widths' stacks then timed
-    at N_REPAIRED_TIME contexts beside the plain version and the bound.
+    at N_REPAIRED_TIME contexts beside the bound.
     Returns the largest max |err|."""
     err = 0.0
     for e, h, layers, t in BLOCK_SHAPES:
@@ -836,11 +794,9 @@ def block_shapes_phase(seed: int, dev) -> float:
             tokens = random_tokens(seed + e, N_REPAIRED_TIME, cfg, dev)
             x = (w.wte32[tokens.long()] + w.wpe32).to(torch.bfloat16)
             ms = cuda_ms(lambda: fused_blocks.fused_blocks(x, w.stacks(), False), reps=3)
-            plain_ms = cuda_ms(lambda: [fused_blocks.blocks_reference(c, w.stacks(), False)
-                                        for c in x.split(64)], reps=1)
-            bound_ms, bound_by = blocks_bound(N_REPAIRED_TIME, w.stacks(), t, last_only=False)
+            bound_ms, bound_by = frozen.blocks_bound(sizes(cfg), N_REPAIRED_TIME, last_only=False)
             log(f"[timing] blocks E={e} H={h} L={layers} T={t} N={N_REPAIRED_TIME}: kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+                f"{ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
                 f"{100 * bound_ms / ms:.2f} % of bound")
     return err
 
@@ -891,7 +847,8 @@ def gemm_phase(seed: int, dev) -> dict:
         tflops = 2 * m * n * k / 1e9
         log(f"[timing] gemm {label} [{m}, {k}] x [{k}, {n}]: gemm_tile {ms:.3f} ms "
             f"({tflops / ms:.1f} TFLOP/s), torch.matmul {lib_ms:.3f} ms ({tflops / lib_ms:.1f} "
-            f"TFLOP/s), bound {bound(2 * m * n * k, 0, 2 * (m * k + k * n + m * n))[0]:.3f} ms")
+            f"TFLOP/s), bound {frozen.bound(2 * m * n * k, 0, 2 * (m * k + k * n + m * n))[0]:.3f} "
+            "ms")
         rows[label] = {"shape": [m, n, k], "gemm_ms": ms, "cublas_ms": lib_ms}
     return rows
 
@@ -922,28 +879,22 @@ def blocks_model(seed: int, dev) -> dict:
                   block_shapes_phase(seed, dev))
 
     # one layer-stack launch per forward: the chunked route runs all 12 layers in one call
-    dt, (_, launches, _) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
-                                   blocks=STEPS_85M)
+    _, (_, launches, _) = rollout("85M", spec, model, states, B_85M, STEPS_85M, e2e=0,
+                                  blocks=STEPS_85M)
 
-    ms_step = cuda_ms(lambda: fused_gpt.fused_logits(w, real), reps=5)
-    log(f"[timing] 85M N={real.shape[0]}: forward {ms_step:.3f} ms of a "
-        f"{1e3 * dt / STEPS_85M:.3f} ms rollout step")
     tokens = real.repeat(N_TIME_85M // real.shape[0], 1)
     x = (w.wte32[tokens.long()] + w.wpe32).to(torch.bfloat16)
     ms = cuda_ms(lambda: fused_blocks.fused_blocks(x, stacks, last_only=True), reps=3)
     fwd_ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=2)
-    plain_ms = cuda_ms(lambda: [fused_blocks.blocks_reference(c, stacks, last_only=True)
-                                for c in x.split(PLAIN_CHUNK["85M"])], reps=2)
-    bound_ms, bound_by = blocks_bound(N_TIME_85M, stacks, cfg.block_size, last_only=True)
+    bound_ms, bound_by = frozen.blocks_bound(sizes(cfg), N_TIME_85M, last_only=True)
     log(f"[timing] 85M N={N_TIME_85M}: kernel {ms:.3f} ms (whole forward {fwd_ms:.3f} ms), "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-        f"{100 * bound_ms / ms:.2f} % of bound")
+        f"bound {bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.2f} % of bound")
     split = log_split(f"85M N={N_TIME_85M} layer stack",
                       lambda: fused_blocks.fused_blocks(x, stacks, last_only=True))
     return {"name": "fused_blocks", "model": "85M", "route": "cuda",
             "source": "mapf_gpt_tpu_torch/csrc/fused_blocks.cu",
             "replaces": "mapf_gpt_tpu/ops/fused_gpt.py:167",
-            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "n_contexts": N_TIME_85M, "at_t_200_and_block_shapes": True,
             "attention_kernels_ms": {profiling.kernel_key(name): ms_k
@@ -953,8 +904,7 @@ def blocks_model(seed: int, dev) -> dict:
 def widths_phase(seed: int, dev) -> None:
     """Widths no published model has, each on the kernel cuda_plan names,
     against the plain version, that kernel's counter exactly one; then the
-    whole forward timed at N_WIDTHS_TIME contexts beside its plain version
-    and its bound."""
+    whole forward timed at N_WIDTHS_TIME contexts beside its bound."""
     for e, h, layers in WIDTHS:
         cfg = GPTConfig(n_layer=layers, n_head=h, n_embd=e)
         model = load_model(cfg, init_params(cfg, torch.Generator().manual_seed(seed + e)),
@@ -972,11 +922,9 @@ def widths_phase(seed: int, dev) -> None:
             raise RuntimeError(f"width {e}: launches (e2e, blocks) {got}, expected {want}")
         tokens = random_tokens(seed + e, N_WIDTHS_TIME, cfg, dev)
         ms = cuda_ms(lambda: fused_gpt.fused_logits(w, tokens), reps=2)
-        plain_ms = cuda_ms(lambda: [fused_gpt.fused_logits_reference(w, c)
-                                    for c in tokens.split(256)], reps=1)
-        bound_ms, bound_by = e2e_bound(N_WIDTHS_TIME, w, cfg.block_size)
+        bound_ms, bound_by = frozen.e2e_bound(sizes(cfg), N_WIDTHS_TIME)
         log(f"[timing] width E={e} H={h} L={layers} ({kernel}) N={N_WIDTHS_TIME}: forward "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+            f"{ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
             f"{100 * bound_ms / ms:.2f} % of bound")
 
 
@@ -1124,18 +1072,15 @@ def train_kernels_phase(models: dict, seed: int, dev) -> tuple[float, float]:
             xs, top = xsave[2:4].contiguous(), stacks.chunk(1, 2)
             fwd_ms = cuda_ms(lambda: fgt.train_forward(x, stacks, last_only=False), reps=3)
             bwd_ms = cuda_ms(lambda: fgt.train_backward(xs, dxin, top), reps=3)
-            plain_fwd = cuda_ms(lambda: fgt.train_fwd_reference(x, stacks, False), reps=1)
-            plain_bwd = cuda_ms(lambda: fgt.train_bwd_reference(xs, dxin, top), reps=1)
             stream = n * t * e * 2
-            ops, exps = train_ops(t, e, h, 2, False, False)
-            fwd_bound = bound(n * ops, n * exps, 6 * stream + nbytes(*stacks[:6]))
-            ops, exps = train_ops(t, e, h, 1, False, True)
-            bwd_bound = bound(n * ops, n * exps,
-                              4 * stream + nbytes(*top[:6]) + sum(4 * g.numel() for g in top[:6]))
-            log(f"[timing] {label} train N={n} T={t}: forward (2 layers) {fwd_ms:.3f} ms (plain "
-                f"{plain_fwd:.3f} ms, bound {fwd_bound[0]:.3f} ms {fwd_bound[1]}), backward (1 "
-                f"layer) {bwd_ms:.3f} ms (plain {plain_bwd:.3f} ms, bound {bwd_bound[0]:.3f} ms "
-                f"{bwd_bound[1]})")
+            ops, exps = frozen.train_ops(t, e, h, 2, False, False)
+            fwd_bound = frozen.bound(n * ops, n * exps, 6 * stream + nbytes(*stacks[:6]))
+            ops, exps = frozen.train_ops(t, e, h, 1, False, True)
+            bwd_bound = frozen.bound(n * ops, n * exps, 4 * stream + nbytes(*top[:6])
+                                     + sum(4 * g.numel() for g in top[:6]))
+            log(f"[timing] {label} train N={n} T={t}: forward (2 layers) {fwd_ms:.3f} ms (bound "
+                f"{fwd_bound[0]:.3f} ms {fwd_bound[1]}), backward (1 layer) {bwd_ms:.3f} ms "
+                f"(bound {bwd_bound[0]:.3f} ms {bwd_bound[1]})")
     return fwd_err, bwd_err
 
 
@@ -1245,45 +1190,10 @@ def check_bwd_gemm_launches(label: str, got: dict, cfg, micro: int, batch: int) 
         raise RuntimeError(f"{label}: backward epilogue kernel launches {got}, expected {want}")
 
 
-def train_ops(t: int, e: int, h: int, layers: int, last_only: bool, backward: bool
-              ) -> tuple[int, int]:
-    """(bf16 product FLOP, exp count) of a training chunk on one context.
-
-    Forward, a layer: q|k|v 6TE^2, scores and P@V 4T^2E, projection 2TE^2,
-    MLP 16TE^2 (for the last row alone in a last_only chunk's final layer).
-    Backward, a layer (recompute included): q|k|v, attention and fc
-    recomputed 14TE^2 + 4T^2E, dX and dW of the five products 48TE^2, the
-    four attention-backward products 8T^2E.  One exp per score a layer."""
-    if backward:
-        return layers * (62 * t * e * e + 12 * t * t * e), layers * h * t * t
-    attn = 8 * t * e * e + 4 * t * t * e
-    ops = layers * (attn + 16 * t * e * e)
-    if last_only:
-        ops -= 16 * t * e * e - 16 * e * e
-    return ops, layers * h * t * t
-
-
-def train_bounds(n: int, t: int, h: int, stacks: fgt.TrainStacks, chunks: int
-                 ) -> tuple[tuple[float, str], tuple[float, str]]:
-    """(forward, backward) bounds of the whole stack on n contexts, last
-    position out: x read, out and xsave written; xsave read once, the top
-    gradient and the chunks' dx in and out, weights, fp32 gradients."""
-    layers, e, _ = stacks.wqkv.shape
-    weights = nbytes(*stacks[:6])
-    stream = n * t * e * 2
-    ops, exps = train_ops(t, e, h, layers, True, False)
-    fwd = bound(n * ops, n * exps, stream + 2 * layers * stream + n * e * 2 + weights)
-    ops, exps = train_ops(t, e, h, layers, True, True)
-    grads = sum(4 * g.numel() for g in stacks[:6])
-    bwd = bound(n * ops, n * exps, 2 * layers * stream + 2 * chunks * stream + weights + grads)
-    return fwd, bwd
-
-
 def stack_runs(model, tokens: torch.Tensor, seed: int):
     """The training stack alone on `tokens`: (stacks, backward chunks,
-    callables running the forward kernel, the backward chunks' kernels
-    and the plain versions of both, TRAIN_PLAIN_CHUNK contexts a call, and
-    the forward kernel's (x, out, xsave) with the top gradient dxin)."""
+    callables running the forward kernel and the backward chunks' kernels,
+    and the forward kernel's (x, out, xsave) with the top gradient dxin)."""
     cfg = model.cfg
     stacks = train_stacks(model)
     x = embed(model, tokens)
@@ -1300,36 +1210,17 @@ def stack_runs(model, tokens: torch.Tensor, seed: int):
         for lo, hi in chunks:
             dx, _ = fgt.train_backward(xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi))
 
-    def plain_forward():
-        for c in x.split(TRAIN_PLAIN_CHUNK):
-            fgt.train_fwd_reference(c, stacks, True)
-
-    def plain_backward():
-        dx = dxin
-        for lo, hi in chunks:
-            dx, _ = plain_backward_chunks(xsave[2 * lo:2 * hi], dx, stacks.chunk(lo, hi),
-                                          TRAIN_PLAIN_CHUNK)
-
-    return (stacks, chunks, forward, backward, plain_forward, plain_backward,
-            (x, out, xsave, dxin))
+    return stacks, chunks, forward, backward, (x, out, xsave, dxin)
 
 
 def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
                  trainer: dict) -> list[dict]:
-    """One forward + backward of the 6M at N_TRAIN_TIME contexts: the
-    kernels alone, the whole fused loss + backward, the plain versions."""
+    """One forward + backward of the 6M's training kernels alone at
+    N_TRAIN_TIME contexts, beside their bounds."""
     cfg = model.cfg
     _, _, real = reset_batch(seed, B, STEPS, dev)
     tokens = real.repeat(N_TRAIN_TIME // real.shape[0], 1)
-    stacks, chunks, forward, backward, plain_forward, plain_backward, _ = stack_runs(
-        model, tokens, seed)
-
-    targets = torch.from_numpy(np.random.RandomState(seed).randint(0, 5, tokens.shape[0])).to(dev)
-
-    def whole():
-        model.zero_grad(set_to_none=True)
-        fgt.fused_loss_fn(model, tokens, targets).backward()
-
+    _, chunks, forward, backward, _ = stack_runs(model, tokens, seed)
     fwd_ms = cuda_ms(forward, reps=3)
     bwd_ms = cuda_ms(backward, reps=3)
     torch.cuda.synchronize()
@@ -1344,28 +1235,22 @@ def train_timing(model, seed: int, dev, fwd_err: float, bwd_err: float,
     log("[timing] backward workspace for groups of 256 contexts: " + ", ".join(
         f"{label} {b} bytes" for label, b in workspace.items()))
     split = log_split(f"6M train N={N_TRAIN_TIME} backward", backward)   # warmed up above
-    whole_ms = cuda_ms(whole, reps=3)
-    plain_fwd_ms = cuda_ms(plain_forward, reps=1)
-    plain_bwd_ms = cuda_ms(plain_backward, reps=1)
     n = N_TRAIN_TIME
-    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = train_bounds(n, cfg.block_size, cfg.n_head,
-                                                            stacks, len(chunks))
-    log(f"[timing] 6M train N={n}: forward kernel {fwd_ms:.3f} ms (plain {plain_fwd_ms:.3f} ms, "
-        f"bound {fwd_bound:.3f} ms {fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); "
-        f"backward kernels {bwd_ms:.3f} ms in {len(chunks)} calls (plain {plain_bwd_ms:.3f} ms, "
-        f"bound {bwd_bound:.3f} ms {bwd_by}, {100 * bwd_bound / bwd_ms:.2f} % of bound); "
-        f"fused_loss_fn + backward {whole_ms:.3f} ms (bound of both {fwd_bound + bwd_bound:.3f} ms)")
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = frozen.train_bounds(sizes(cfg), n)
+    log(f"[timing] 6M train N={n}: forward kernel {fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms "
+        f"{fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); backward kernels {bwd_ms:.3f} ms "
+        f"in {len(chunks)} calls (bound {bwd_bound:.3f} ms {bwd_by}, "
+        f"{100 * bwd_bound / bwd_ms:.2f} % of bound)")
     common = {"model": "6M", "route": "cuda", "source": "mapf_gpt_tpu_torch/csrc/fused_train.cu",
               "library_ms": None, "n_contexts": n}
     return [
         {"name": "fused_train_fwd", **common,
          "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:98", "launches": trainer["launches"][0],
-         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound,
-         "bound_by": fwd_by, "whole_loss_and_backward_ms": whole_ms},
+         "max_abs_err": fwd_err, "ms": fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by},
         {"name": "fused_train_bwd", **common,
          "replaces": "mapf_gpt_tpu/ops/fused_gpt_train.py:133",
          "launches": trainer["launches"][1], "max_abs_err": bwd_err, "ms": bwd_ms,
-         "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "bound_ms": bwd_bound, "bound_by": bwd_by,
          "calls": len(chunks), "workspace_bytes": workspace,
          "attention_kernels_ms": {profiling.kernel_key(name): ms_k
                                   for ms_k, _, name in split if "attn" in name},
@@ -1515,16 +1400,14 @@ def blocks_attention_timing(seed: int, dev, b: int, h: int, t: int, d: int) -> d
             f"blocks attention [{b}, {h}, {t}, {d}] contexts {i}..{min(b, i + chunk) - 1}",
             got[i:i + chunk], fused_blocks.attention_reference(qkv[i:i + chunk], h)))
     ms = cuda_ms(lambda: fused_blocks.blocks_attention(qkv, h), reps=5)
-    plain_ms = cuda_ms(lambda: [fused_blocks.attention_reference(qkv[i:i + chunk], h)
-                                for i in range(0, b, chunk)], reps=1)
     n = b * h
-    bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
+    bound_ms, bound_by = frozen.bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
     floor_ms = mufu_floor_ms(n * t * t)
     log(f"[timing] blocks attention (the 85M stack's) [{b}, {h}, {t}, {d}]: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), exp2 floor "
-        f"{floor_ms:.3f} ms, {100 * bound_ms / ms:.2f} % of bound")
-    return {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+        f"bound {bound_ms:.3f} ms ({bound_by}), exp2 floor {floor_ms:.3f} ms, "
+        f"{100 * bound_ms / ms:.2f} % of bound")
+    return {"shape": [b, h, t, d], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err}
 
 
 def check_attention_chunks(name: str, got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -1539,10 +1422,10 @@ def check_attention_chunks(name: str, got: torch.Tensor, q: torch.Tensor, k: tor
 
 def attention_timing(seed: int, dev, launches: int, max_err: float) -> tuple[dict, dict]:
     """The attention kernel at ATT_TIME in bf16 and fp16, its outputs there
-    held against its plain version chunk by chunk, timed beside the plain
-    version, one scaled_dot_product_attention call, the bound and the
-    exp2s' floor; the layer stack's attention alone at the 85M's shape; the
-    host time of a call.  Returns the attention's entry and the stack's
+    held against its plain version chunk by chunk, timed beside one
+    scaled_dot_product_attention call, the bound and the exp2s' floor; the
+    layer stack's attention alone at the 85M's shape; the host time of a
+    call.  Returns the attention's entry and the stack's
     attention timing."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
@@ -1560,25 +1443,21 @@ def attention_timing(seed: int, dev, launches: int, max_err: float) -> tuple[dic
                 f"({attention_route(t, d, x[0].dtype)})", got, *x, scale, chunk))
             del got
         ms = cuda_ms(lambda: tatt.attention_pallas(q, k, v, scale), reps=5)
-        plain_ms = cuda_ms(lambda: [tatt.attention_einsum(q[i:i + chunk], k[i:i + chunk],
-                                                          v[i:i + chunk], scale)
-                                    for i in range(0, b, chunk)], reps=1)
         sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, scale=scale), reps=5)
         fp16_ms = cuda_ms(lambda: tatt.attention_pallas(qh, kh, vh, scale), reps=5)
         sdpa16_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, scale=scale), reps=5)
         n = b * h
-        bound_ms, bound_by = bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
+        bound_ms, bound_by = frozen.bound(4 * n * t * t * d, n * t * t, 4 * n * t * d * 2)
         floor_ms = mufu_floor_ms(n * t * t)
         log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] bf16 "
-            f"({attention_route(t, d, torch.bfloat16)}): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({bound_by}), exp2 floor {floor_ms:.3f} ms, "
-            f"{100 * bound_ms / ms:.2f} % of bound")
+            f"({attention_route(t, d, torch.bfloat16)}): kernel {ms:.3f} ms, "
+            f"scaled_dot_product_attention {sdpa_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}), exp2 floor {floor_ms:.3f} ms, {100 * bound_ms / ms:.2f} % of bound")
         log(f"[timing] attention {label} [{b}, {h}, {t}, {d}] fp16: kernel {fp16_ms:.3f} ms, "
             f"scaled_dot_product_attention {sdpa16_ms:.3f} ms")
-        rows[label] = {"shape": [b, h, t, d], "ms": ms, "plain_ms": plain_ms,
+        rows[label] = {"shape": [b, h, t, d], "ms": ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa_ms,
                        "fp16_ms": fp16_ms, "fp16_library_ms": sdpa16_ms}
     blocks_att = blocks_attention_timing(seed, dev, *ATT_TIME["85M"])
@@ -1646,8 +1525,8 @@ def check_train_attention(label: str, qkv, datt, h: int, chunk: int) -> dict[str
 def train_attention_phase(seed: int, dev) -> dict:
     """21. The training attention's kernels alone: compared at
     TRAIN_ATT_SHAPES, then compared and timed at TRAIN_ATT_TIME beside the
-    bounds, the exp2s' floor, the plain versions and the library's flash
-    attention.  Returns the timings and each kernel's largest error."""
+    bounds, the exp2s' floor and the library's flash attention.  Returns
+    the timings and each kernel's largest error."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     errs = dict.fromkeys(("fwd", "q", "kv"), 0.0)
@@ -1685,11 +1564,6 @@ def train_attention_phase(seed: int, dev) -> dict:
 
         ms = {"fwd": cuda_ms(lambda: fgt.train_attention(qkv, h), reps=5),
               "q": cuda_ms(side(1), reps=5), "kv": cuda_ms(side(2), reps=5)}
-        ms["plain_fwd"] = cuda_ms(lambda: [fgt.train_attention_reference(
-            qkv[i:i + TRAIN_ATT_PLAIN], h) for i in range(0, n, TRAIN_ATT_PLAIN)], reps=1)
-        ms["plain_bwd"] = cuda_ms(lambda: [fgt.train_attention_backward_reference(
-            qkv[i:i + TRAIN_ATT_PLAIN], datt[i:i + TRAIN_ATT_PLAIN], h)
-            for i in range(0, n, TRAIN_ATT_PLAIN)], reps=1)
         q, k, v = (z.reshape(n, t, h, d).transpose(1, 2).detach().requires_grad_()
                    for z in qkv.split(h * d, dim=-1))
         do = datt.reshape(n, t, h, d).transpose(1, 2)
@@ -1708,17 +1582,17 @@ def train_attention_phase(seed: int, dev) -> dict:
         exps = pairs * t * t
         # (q side: q, k, v, dA, m and l in, dq and each row's lse and delta out; the
         # forward's att, which the kernel reads for delta, is no input dq needs)
-        bounds = {"fwd": bound(4 * pairs * t * t * d, exps, 3 * act + act + 2 * stat),
-                  "q": bound(6 * pairs * t * t * d, exps, 4 * act + 2 * stat + act + 2 * stat),
-                  "kv": bound(8 * pairs * t * t * d, exps, 4 * act + 2 * stat + 2 * act)}
+        bounds = {"fwd": frozen.bound(4 * pairs * t * t * d, exps, 3 * act + act + 2 * stat),
+                  "q": frozen.bound(6 * pairs * t * t * d, exps,
+                                    4 * act + 2 * stat + act + 2 * stat),
+                  "kv": frozen.bound(8 * pairs * t * t * d, exps, 4 * act + 2 * stat + 2 * act)}
         floor_ms = mufu_floor_ms(exps)
         for kern, name in (("fwd", "forward with statistics"), ("q", "attn_bwd_q_wgmma"),
                            ("kv", "attn_bwd_kv_wgmma")):
             log(f"[timing] training attention {label} [{n}, {h}, {t}, {d}] {name}: "
                 f"{ms[kern]:.3f} ms, bound {bounds[kern][0]:.3f} ms ({bounds[kern][1]}), exp2 "
                 f"floor {floor_ms:.3f} ms, {100 * bounds[kern][0] / ms[kern]:.2f} % of bound")
-        log(f"[timing] training attention {label}: plain forward {ms['plain_fwd']:.3f} ms, plain "
-            f"backward {ms['plain_bwd']:.3f} ms; scaled_dot_product_attention forward "
+        log(f"[timing] training attention {label}: scaled_dot_product_attention forward "
             f"{ms['sdpa_fwd']:.3f} ms, forward + backward {ms['sdpa_fwd_bwd']:.3f} ms against "
             f"{ms['fwd'] + ms['q'] + ms['kv']:.3f}; the flash backward alone "
             f"{ms['sdpa_bwd']:.3f} ms against {ms['q'] + ms['kv']:.3f} (its dq|dk|dv within "
@@ -1764,9 +1638,8 @@ def train_attention_entries(phase: dict, launches: dict) -> list[dict]:
         # library_ms: the flash forward for the forward; the flash backward, which
         # computes dq, dk and dv at once, for each of the two backward kernels
         def row(r):
-            return {"ms": r["ms"][kern], "plain_ms": r["ms"]["plain_" + ("fwd" if kern == "fwd"
-                                                                         else "bwd")],
-                    "bound_ms": r["bound_ms"][kern], "bound_by": r["bound_by"][kern],
+            return {"ms": r["ms"][kern], "bound_ms": r["bound_ms"][kern],
+                    "bound_by": r["bound_by"][kern],
                     "library_ms": r["ms"]["sdpa_fwd" if kern == "fwd" else "sdpa_bwd"],
                     "exp2_floor_ms": r["exp2_floor_ms"],
                     "sdpa_fwd_bwd_ms": r["ms"]["sdpa_fwd_bwd"], "shape": r["shape"]}
@@ -1801,8 +1674,8 @@ def bwd_gemm_phase(seed: int, dev) -> dict:
     front's hact against gemm_tile's GELU epilogue bit for bit, hact and dh
     within a bf16 step of the plain version, the LN epilogue at both sites
     against its plain version (the update, dxb, dg; twice, bit for bit),
-    then each timed beside its bound, its plain version and the gemm_tile
-    products of the same operands.  Returns the timings and each kernel's
+    then each timed beside its bound and the gemm_tile products of the
+    same operands.  Returns the timings and each kernel's
     largest error."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1834,17 +1707,16 @@ def bwd_gemm_phase(seed: int, dev) -> dict:
         ms_front = cuda_ms(lambda: fgt.mlp_front(xn2, wfc, dxb, wfc2), reps=10)
         ms_two = cuda_ms(lambda: (fgt.gemm_tile(xn2, wfc), fgt.gemm_tile(dxb, wfc2, b_k=True)),
                          reps=10)
-        ms_plain = cuda_ms(lambda: fgt.mlp_front_reference(xn2, wfc, dxb, wfc2), reps=1)
         # operations: the two products (an exp2 a hidden value); bytes: each input once,
         # hact and dh written
-        b_front = bound(4 * m * e * f, m * f, nbytes(xn2, dxb, wfc, wfc2) + 2 * m * f * 2)
+        b_front = frozen.bound(4 * m * e * f, m * f,
+                               nbytes(xn2, dxb, wfc, wfc2) + 2 * m * f * 2)
         row["mlp_front_kernel"] = {
-            "ms": ms_front, "plain_ms": ms_plain, "bound_ms": b_front[0], "bound_by": b_front[1],
+            "ms": ms_front, "bound_ms": b_front[0], "bound_by": b_front[1],
             "two_gemm_tile_ms": ms_two, "hact_bit_equal_to_gemm_tile_gelu": True}
         log(f"[timing] MLP front {label} [{m}, {e}, {f}]: {ms_front:.4f} ms, bound "
             f"{b_front[0]:.4f} ms ({b_front[1]}, {100 * b_front[0] / ms_front:.2f} % of bound); "
-            f"two gemm_tile products of the same operands (bf16 out) {ms_two:.4f} ms; plain "
-            f"{ms_plain:.3f} ms")
+            f"two gemm_tile products of the same operands (bf16 out) {ms_two:.4f} ms")
         del xn2, dxb, hact, dh
         # the LN epilogue at its two sites: dh Wfc^T (K = F) and dqkv Wqkv^T (K = 3E)
         for site, k, w in (("LN2 (dh Wfc^T)", f, wfc),
@@ -1876,17 +1748,15 @@ def bwd_gemm_phase(seed: int, dev) -> dict:
             # dx updated in place, as the backward does (its values drift; its time does not)
             ms_ln = cuda_ms(lambda: fgt.ln_backward_dx(a, w, x, g, dx, mu, rstd, e), reps=10)
             ms_mm = cuda_ms(lambda: fgt.gemm_tile(a, w, b_k=True), reps=10)
-            ms_plain = cuda_ms(lambda: fgt.ln_backward_dx_reference(a, w, x, g, dx, mu, rstd, e),
-                               reps=1)
             # bytes: A, W, x, g, mu and rstd read once, dx read and written, dxb and dg written
-            b_ln = bound(2 * m * e * k, 0, nbytes(a, w, x, g, mu, rstd) + 2 * nbytes(dx)
-                         + m * e * 2 + e * 4)
+            b_ln = frozen.bound(2 * m * e * k, 0, nbytes(a, w, x, g, mu, rstd) + 2 * nbytes(dx)
+                                + m * e * 2 + e * 4)
             row[f"ln_dx_kernel {site.split()[0]}"] = {
-                "ms": ms_ln, "plain_ms": ms_plain, "bound_ms": b_ln[0], "bound_by": b_ln[1],
+                "ms": ms_ln, "bound_ms": b_ln[0], "bound_by": b_ln[1],
                 "gemm_tile_ms": ms_mm, "over_gemm_tile": ms_ln / ms_mm}
             log(f"[timing] {name}: {ms_ln:.4f} ms, bound {b_ln[0]:.4f} ms ({b_ln[1]}, "
                 f"{100 * b_ln[0] / ms_ln:.2f} % of bound); gemm_tile's product alone (bf16 out) "
-                f"{ms_mm:.4f} ms, the kernel {ms_ln / ms_mm:.2f}x that; plain {ms_plain:.3f} ms")
+                f"{ms_mm:.4f} ms, the kernel {ms_ln / ms_mm:.2f}x that")
             del a, x, dx
         rows[label] = row
     seconds = time.perf_counter() - t0
@@ -1961,7 +1831,8 @@ def evaluator_phase(model, seed: int, dev) -> dict:
     specs on procedural random and maze maps, lifelong specs on the
     warehouse map (K = EVAL_K, lazy and dense cost2go, rows equal), the e2e
     kernel's launches one per step and chunk; the lazy step split into its
-    parts with relax_fixpoint timed beside its row-loop plain version; the
+    parts with relax_fixpoint timed alone, held equal to its row-loop plain
+    version; the
     bench workload's step split; and one recorded rollout with an input
     mask."""
     t0 = time.perf_counter()
@@ -2052,13 +1923,12 @@ def evaluator_phase(model, seed: int, dev) -> dict:
     if not torch.equal(relax_fixpoint(seed_d, free), relax_fixpoint_rows(seed_d, free)):
         raise RuntimeError("relax_fixpoint differs from the row loop on the lifelong fields")
     relax_ms = cuda_ms(lambda: relax_fixpoint(seed_d, free), reps=5)
-    rows_ms = cuda_ms(lambda: relax_fixpoint_rows(seed_d, free), reps=2)
     log(f"[timing] lifelong lazy step, {len(lspecs)} envs x {agents} agents on the {h} x {w} "
         f"warehouse tier: tokens {split['tokens']:.3f} ms, forward {split['forward']:.3f} ms, "
         f"act {split['act']:.3f} ms, env step {split['env_step']:.3f} ms (its relaxation "
-        f"inside); relax_fixpoint alone {relax_ms:.3f} ms (one round), its row-loop plain "
-        f"version relax_fixpoint_rows {rows_ms:.3f} ms")
-    out["lifelong_step_ms"] = {**split, "relax_fixpoint": relax_ms, "relax_row_loop": rows_ms,
+        f"inside); relax_fixpoint alone {relax_ms:.3f} ms (one round), equal to its row-loop "
+        f"plain version relax_fixpoint_rows")
+    out["lifelong_step_ms"] = {**split, "relax_fixpoint": relax_ms,
                                "fields": int(seed_d.shape[0]), "grid": [int(h), int(w)]}
 
     # the bench workload's step split: 256 envs x 32 agents on 21 x 21 random maps
@@ -2236,7 +2106,7 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     rollout step through the layer-stack kernel; then iterations at the
     reference shape (512 x 16), the first counted and the next two timed;
     last the kernels alone at 512 contexts, checked against their plain
-    versions and timed."""
+    versions and timed beside their bounds."""
     cfg = CONFIGS["85M"]
     out_dir = os.path.join(data_dir, "out_85m")
     iters, batch, accum = TRAIN_85M
@@ -2318,20 +2188,19 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     flops = (profiling.transformer_flops_per_token(
         model.num_params(), cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head, cfg.block_size)
         * cfg.block_size * batch * REF_ACCUM_85M)
-    mfu = flops / iter_s / PEAK_BF16
+    mfu = flops / iter_s / frozen.PEAK_BF16
     log(f"[trainer 85M] iterations at the reference shape {batch} x {REF_ACCUM_85M}: launches "
         f"forward {ref_launches[0]} backward {ref_launches[1]} in the first (untimed); then "
         f"{iter_times[0]:.3f} and {iter_times[1]:.3f} s, median {iter_s:.3f} s ({1 / iter_s:.4f} "
         f"it/s, {batch * REF_ACCUM_85M / iter_s:.1f} contexts/s), MFU {100 * mfu:.3f} % of "
-        f"{PEAK_BF16:.3g} FLOP/s; losses {losses_ref}")
+        f"{frozen.PEAK_BF16:.3g} FLOP/s; losses {losses_ref}")
     if not all(math.isfinite(v) for v in losses_ref):
         raise RuntimeError("trainer 85M: a reference-shape loss is not finite")
 
     # the kernels alone at the micro-batch the trainer gives them (one
     # forward, the 12 backward chunks), against their plain versions, then
-    # timed beside them
-    stacks, chunks, forward, backward, plain_forward, plain_backward, (xe, out, xsave, dxin) = \
-        stack_runs(model, x[0], seed)
+    # timed beside their bounds
+    stacks, chunks, forward, backward, (xe, out, xsave, dxin) = stack_runs(model, x[0], seed)
     torch.cuda.synchronize()
     fwd_err = 0.0
     for c0 in range(0, batch, TRAIN_PLAIN_CHUNK):
@@ -2352,23 +2221,20 @@ def trainer_85m_phase(seed: int, dev, data_dir: str) -> dict:
     del xe, out, dxin, dx
     fwd_ms = cuda_ms(forward, reps=2)
     bwd_ms = cuda_ms(backward, reps=2)
-    plain_fwd_ms = cuda_ms(plain_forward, reps=1)
-    plain_bwd_ms = cuda_ms(plain_backward, reps=1)
-    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = train_bounds(batch, cfg.block_size, cfg.n_head,
-                                                            stacks, len(chunks))
-    log(f"[timing] 85M train N={batch}: forward kernel {fwd_ms:.3f} ms (plain {plain_fwd_ms:.3f} "
-        f"ms, bound {fwd_bound:.3f} ms {fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); "
-        f"backward kernels {bwd_ms:.3f} ms in {len(chunks)} calls (plain {plain_bwd_ms:.3f} ms, "
-        f"bound {bwd_bound:.3f} ms {bwd_by}, {100 * bwd_bound / bwd_ms:.2f} % of bound)")
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = frozen.train_bounds(sizes(cfg), batch)
+    log(f"[timing] 85M train N={batch}: forward kernel {fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms "
+        f"{fwd_by}, {100 * fwd_bound / fwd_ms:.2f} % of bound); backward kernels {bwd_ms:.3f} ms "
+        f"in {len(chunks)} calls (bound {bwd_bound:.3f} ms {bwd_by}, "
+        f"{100 * bwd_bound / bwd_ms:.2f} % of bound)")
     return {"launches": launches, "losses": losses, "evals": evals, "wall_s": wall,
             "peak_memory_bytes": peak, "memory_estimate_bytes": MEM_85M_ESTIMATE,
             "ref_iteration_s": iter_times, "ref_it_per_s": 1 / iter_s, "ref_mfu": mfu,
             "ref_wgmma_launches": ref_att_launches, "ref_bwd_gemm_launches": ref_epi_launches,
-            "fwd": {"n_contexts": batch, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+            "fwd": {"n_contexts": batch, "ms": fwd_ms,
                     "bound_ms": fwd_bound, "bound_by": fwd_by, "max_abs_err": fwd_err,
                     "launches_per_iteration": launches[0] // iters,
                     "launches_per_reference_iteration": ref_launches[0]},
-            "bwd": {"n_contexts": batch, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+            "bwd": {"n_contexts": batch, "ms": bwd_ms,
                     "bound_ms": bwd_bound, "bound_by": bwd_by, "max_abs_err": bwd_err,
                     "launches_per_iteration": launches[1] // iters,
                     "launches_per_reference_iteration": ref_launches[1]}}
@@ -2917,8 +2783,7 @@ def main() -> int:
     widths_phase(args.seed, dev)
     fwd_err, bwd_err = train_kernels_phase({"2M": model_2m, "6M": model_6m}, args.seed, dev)
     trainer = trainer_phase(model_6m, args.seed, dev)
-    entries += train_timing(model_6m.train().requires_grad_(), args.seed, dev, fwd_err, bwd_err,
-                            trainer)
+    entries += train_timing(model_6m, args.seed, dev, fwd_err, bwd_err, trainer)
     entries[-1]["gemm_yardstick"] = gemm_rows["6M backward dh Wfc^T"]
     entries += train_attention_entries(train_att, trainer["wgmma_launches"])
     entries += bwd_gemm_entries(bwd_gemm, trainer["bwd_gemm_launches"])

@@ -121,10 +121,6 @@
 // built on the host once per set of weights (fused_gpt_weight_maps, cached by
 // ops/fused_gpt.py), the workspace's (attn_wgmma.cuh's layer-stack layout,
 // T rows a context) by the launcher; all passed as __grid_constant__.
-// tools/kernel_phases.py builds this source with -DFUSED_GPT_SKIP=<bits>:
-// the phases whose bit is set skip their products and epilogues (their
-// tiles still stream and every barrier sees the same sequence), and
-// SKIP_LOADS issues no TMA copies of the weights.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libfused_gpt.so fused_gpt.cu   (ops/_build.py)
@@ -136,10 +132,6 @@
 #include <string.h>
 
 #include "attn_wgmma.cuh"
-
-#ifndef FUSED_GPT_SKIP
-#define FUSED_GPT_SKIP 0
-#endif
 
 typedef __nv_bfloat16 bf16;
 
@@ -162,10 +154,6 @@ constexpr int KC = 64;           // keys of an mma.sync attention chunk
 constexpr int MAX_STAGES = 4;
 constexpr int BAR_BYTES = 256;   // the mbarriers
 constexpr int CBAR = 3;          // the consumers' named barrier (1, 2: a warpgroup's)
-// phases tools/kernel_phases.py compiles out
-constexpr int SKIP_QKV = 1, SKIP_ATTENTION = 2, SKIP_PROJ = 4, SKIP_MLP = 8, SKIP_LAST = 16,
-              SKIP_LOADS = 32;
-constexpr int SKIP = FUSED_GPT_SKIP;
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
@@ -538,7 +526,7 @@ struct Fwd {
   // past T computes on finite padding and stores nothing.
   // With KEEP_LAST the last tile is not freed: the caller stages its
   // epilogue there (returned) and frees it.
-  template <bool RUN, bool KEEP_LAST = false>
+  template <bool KEEP_LAST = false>
   static __device__ __forceinline__ unsigned char* product(float (*acc)[4], const bf16* sA,
                                                            Ring& ring) {
     const int r0 = (tid_here() >> 7) * 64;
@@ -546,24 +534,20 @@ struct Fwd {
 #pragma unroll
     for (int kt = 0; kt < NK; ++kt) {
       tile = ring.wait(ring.t + kt);
-      if constexpr (RUN) {
-        wg::fence_operands<NP / 8>(acc);
-        wg::fence();
+      wg::fence_operands<NP / 8>(acc);
+      wg::fence();
 #pragma unroll
-        for (int k = 0; k < KS / 16; ++k)
-          if (kt < NK - 1 || k < KS_LAST)
-            wg::Mma<NP>::template run<0, 1>(acc, desc_a(sA, r0, opaque(kt * KS + 16 * k)),
-                                            desc_w(tile, opaque(k)), kt + k > 0 ? 1 : 0);
-        wg::commit();
-        wg::wait<1>();   // the previous tile's products are done: free it
-        wg::fence_operands<NP / 8>(acc);
-      }
+      for (int k = 0; k < KS / 16; ++k)
+        if (kt < NK - 1 || k < KS_LAST)
+          wg::Mma<NP>::template run<0, 1>(acc, desc_a(sA, r0, opaque(kt * KS + 16 * k)),
+                                          desc_w(tile, opaque(k)), kt + k > 0 ? 1 : 0);
+      wg::commit();
+      wg::wait<1>();   // the previous tile's products are done: free it
+      wg::fence_operands<NP / 8>(acc);
       if (kt > 0) ring.release(ring.t + kt - 1);
     }
-    if constexpr (RUN) {
-      wg::wait<0>();
-      wg::fence_operands<NP / 8>(acc);
-    }
+    wg::wait<0>();
+    wg::fence_operands<NP / 8>(acc);
     if constexpr (!KEEP_LAST) ring.release(ring.t + NK - 1);
     ring.t += NK;
     return const_cast<unsigned char*>(tile);
@@ -582,11 +566,10 @@ struct Fwd {
                                                   Ring& ring) {
     const int tid = tid_here(), lane = tid & 31, warp = tid >> 5, g = lane >> 2, c4 = lane & 3;
     const int cw = warp >> 2;
-    constexpr bool RUN = !(SKIP & SKIP_QKV);
 #pragma unroll 1
     for (int nt = 0; nt < tiles; ++nt) {
       float acc[NP / 8][4];
-      unsigned char* last = product<RUN, STAGED>(acc, sA, ring);
+      unsigned char* last = product<STAGED>(acc, sA, ring);
       const int c0 = n_off + nt * E;
       if constexpr (STAGED) {
         cbar();   // both warpgroups' products have read the tile
@@ -599,15 +582,13 @@ struct Fwd {
               if ((tid & 127) == 0) gemm::bulk_wait<true>();
               gemm::wg_barrier(1 + cw);
             }
-            if (RUN) {
 #pragma unroll
-              for (int jj = 0; jj < 8; ++jj) {
-                const int j = 8 * b + jj;
-                *reinterpret_cast<unsigned*>(row + ((jj ^ g) << 4)) =
-                    attn::pack_bf16(acc[j][0], acc[j][1]);
-                *reinterpret_cast<unsigned*>(row + 8 * 128 + ((jj ^ g) << 4)) =
-                    attn::pack_bf16(acc[j][2], acc[j][3]);
-              }
+            for (int jj = 0; jj < 8; ++jj) {
+              const int j = 8 * b + jj;
+              *reinterpret_cast<unsigned*>(row + ((jj ^ g) << 4)) =
+                  attn::pack_bf16(acc[j][0], acc[j][1]);
+              *reinterpret_cast<unsigned*>(row + 8 * 128 + ((jj ^ g) << 4)) =
+                  attn::pack_bf16(acc[j][2], acc[j][3]);
             }
             wg::fence_proxy();
             gemm::wg_barrier(1 + cw);
@@ -615,7 +596,7 @@ struct Fwd {
               tma_store_3d(&maps.qkv_out, box, c0 + 64 * b, row0 + cw * 64, blockIdx.x);
               gemm::bulk_commit();
             }
-          } else if (64 * b < E && RUN && active) {
+          } else if (64 * b < E && active) {
             bf16* o = out + (size_t)(warp * 16 + g) * E3 + c0 + 2 * c4;
 #pragma unroll
             for (int j = 8 * b; j < E / 8; ++j) {
@@ -627,7 +608,7 @@ struct Fwd {
         if ((tid & 127) == 0) gemm::bulk_wait<true>();   // the slot is read: free it
         gemm::wg_barrier(1 + cw);
         ring.release(ring.t - 1);
-      } else if (RUN && active) {
+      } else if (active) {
         bf16* o = out + (size_t)(warp * 16 + g) * E3 + c0 + 2 * c4;
 #pragma unroll
         for (int j = 0; j < E / 8; ++j) {
@@ -746,7 +727,7 @@ struct Fwd {
       unsigned char* qs = smem + s * G::STAGE;
 #pragma unroll 1
       for (int t = 0; t < nt; ++t, ++item)
-        if (!(SKIP & SKIP_ATTENTION) && (item & 1) == cw)
+        if ((item & 1) == cw)
           aw::tile<DH, bf16, true>(io, blockIdx.x * H + h, t, item, T, 1.f, qs, qs + G::TILE,
                                    qs + 2 * G::TILE, B::ticket());
       // the stage's O stores have read it; then free it
@@ -784,9 +765,8 @@ struct Fwd {
   static __device__ __forceinline__ void proj_half(bf16* xh, bf16* sA, const bf16* att,
                                                    bool wg_active, bool active, Ring& ring) {
     constexpr int KG = E / 8;
-    constexpr bool RUN = !(SKIP & SKIP_PROJ);
     const int cw = tid_here() >> 7, tid = tid_here() & 127;
-    if (RUN && wg_active) {
+    if (wg_active) {
       // 16-byte chunk (row m, columns 8kg ..): 8 lanes a core matrix
       for (int i = tid; i < 64 * KG; i += 128) {
         const int q = i >> 3, kg = q % KG, m = cw * 64 + (q / KG) * 8 + (i & 7);
@@ -798,8 +778,8 @@ struct Fwd {
     }
     gemm::wg_barrier(1 + cw);
     float acc[NP / 8][4];
-    product<RUN>(acc, sA, ring);
-    if (RUN && active) residual_rows(xh, acc);
+    product(acc, sA, ring);
+    if (active) residual_rows(xh, acc);
   }
 
   // 16 hidden columns kk of hc (the fc chunk's C fragments) ->
@@ -862,34 +842,25 @@ struct Fwd {
   // wgmma, the fc2 sums in its accumulators throughout.
   static __device__ __forceinline__ void mlp_half(bf16* xh, bf16* sA, const float* g2,
                                                   bool active, Ring& ring) {
-    constexpr bool RUN = !(SKIP & SKIP_MLP);
     const int warp = tid_here() >> 5, cw = warp >> 2, r0 = cw * 64;
-    if (RUN && active) ln_rows(xh + warp * 16 * LDX, sA, warp * 16, g2);
+    if (active) ln_rows(xh + warp * 16 * LDX, sA, warp * 16, g2);
     wg::fence_proxy();
     gemm::wg_barrier(1 + cw);
     const int t0 = ring.t;
-    if constexpr (!RUN) {
+    float acc2[NP / 8][4];
+    float hc[FC / 8][4];
+    const unsigned char* tile = ring.wait(t0);
+    wg::fence_operands<FC / 8>(hc);
+    wg::fence();
+    issue_fc(hc, sA, r0, tile);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operands<FC / 8>(hc);
+    ring.release(t0);
 #pragma unroll 1
-      for (int i = t0; i < t0 + 2 * NC; ++i) {
-        ring.wait(i);
-        ring.release(i);
-      }
-    } else {
-      float acc2[NP / 8][4];
-      float hc[FC / 8][4];
-      const unsigned char* tile = ring.wait(t0);
-      wg::fence_operands<FC / 8>(hc);
-      wg::fence();
-      issue_fc(hc, sA, r0, tile);
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_operands<FC / 8>(hc);
-      ring.release(t0);
-#pragma unroll 1
-      for (int c = 0; c < NC - 1; ++c) mlp_chunk<true>(c, t0, acc2, hc, sA, ring);
-      mlp_chunk<false>(NC - 1, t0, acc2, hc, sA, ring);
-      if (active) residual_rows(xh, acc2);
-    }
+    for (int c = 0; c < NC - 1; ++c) mlp_chunk<true>(c, t0, acc2, hc, sA, ring);
+    mlp_chunk<false>(NC - 1, t0, acc2, hc, sA, ring);
+    if (active) residual_rows(xh, acc2);
     ring.t = t0 + 2 * NC;
   }
 
@@ -1043,15 +1014,12 @@ struct Fwd {
       const int s = t % STAGES;
       gemm::mbar_wait(B::empty(s), ((t / STAGES) & 1) ^ 1);
       bar = B::full(s);
-      if (SKIP & SKIP_LOADS)
-        gemm::mbar_arrive(bar);
-      else
-        gemm::mbar_expect_tx(bar, bytes);
+      gemm::mbar_expect_tx(bar, bytes);
       ++t;
       return smem + s * SLOT;
     };
     auto load = [&](unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-      if (!(SKIP & SKIP_LOADS)) gemm::tma_load(dst, map, bar, c0, c1);
+      gemm::tma_load(dst, map, bar, c0, c1);
     };
     // NP / 64 boxes of 64 rows from (column c0, row c1)
     auto boxes = [&](const CUtensorMap* map, int c0, int c1) {
@@ -1176,11 +1144,10 @@ struct Fwd {
         if (last) {
           cbar();
           const int r = T - 1 - (halves - 1) * HALF;   // row T-1 in the last half
-          if (!(SKIP & SKIP_LAST))
-            last_position(qkv, xh(halves - 1) + r * LDX, sA, r, wqkv + (size_t)l * E * E3,
-                          wproj + (size_t)l * E * E, wfc + (size_t)l * E * F,
-                          wfc2 + (size_t)l * F * E, g2 + l * E, gf, wht, T, vocab,
-                          reinterpret_cast<float*>(smem), out + (size_t)c * vocab);
+          last_position(qkv, xh(halves - 1) + r * LDX, sA, r, wqkv + (size_t)l * E * E3,
+                        wproj + (size_t)l * E * E, wfc + (size_t)l * E * F,
+                        wfc2 + (size_t)l * F * E, g2 + l * E, gf, wht, T, vocab,
+                        reinterpret_cast<float*>(smem), out + (size_t)c * vocab);
           wg::fence_proxy();   // the scratch writes, before TMA refills the ring
           cbar();
           if (threadIdx.x == 0) gemm::mbar_arrive(B::ctx_done());
@@ -1193,7 +1160,7 @@ struct Fwd {
         cbar();
         if constexpr (ATT_WGMMA)
           attention_wgmma(maps.io, T, a, item);
-        else if (!(SKIP & SKIP_ATTENTION))
+        else
           attention_sync(qkv, T, reinterpret_cast<bf16*>(smem));
         wg::fence_proxy();   // the stages' writes, before TMA refills the ring
         cbar();

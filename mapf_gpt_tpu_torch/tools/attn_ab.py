@@ -55,7 +55,7 @@ from mapf_gpt_tpu_torch.models.gpt import CONFIGS, init_params
 from mapf_gpt_tpu_torch.ops import _build, fused_blocks, fused_gpt
 from mapf_gpt_tpu_torch.ops import attention as tatt
 from mapf_gpt_tpu_torch.ops import fused_gpt_train as fgt
-from mapf_gpt_tpu_torch.tools.kernel_phases import CHECKPOINTS
+from mapf_gpt_tpu_torch.tools.kernel_clock import CHECKPOINTS
 
 ATT_TIME = {"2M": (8192, 5, 256, 32), "85M": (2048, 12, 256, 64)}     # chip_smoke's
 TRAIN_ATT_TIME = {"6M": (2048, 8, 256, 32), "85M": (512, 12, 256, 64)}

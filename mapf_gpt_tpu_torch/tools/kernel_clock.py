@@ -9,10 +9,9 @@ context loop and adds each phase's cycles to a counter in device memory
 stages), the q|k|v epilogue and the LN2 rows separately.  Runs the trained
 ``--model`` (2M or 6M) on ``--n`` random contexts once to warm up and once
 counted, and prints each phase's share of a warpgroup's cycles and that
-share of the counted run's time.  Unlike ``tools/kernel_phases.py``, which
-compiles a phase out (and so changes the registers the compiler gives the
-rest), the kernel runs whole; the counters add a few instructions at each
-boundary.  The copy is built into ``csrc/build/clock/``; its logits are the
+share of the counted run's time.  The kernel runs whole (compiling a phase
+out instead would change the registers the compiler gives the rest); the
+counters add a few instructions at each boundary.  The copy is built into ``csrc/build/clock/``; its logits are the
 kernel's.  Needs a CUDA GPU.
 """
 
@@ -20,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import subprocess
 from unittest import mock
 
@@ -28,7 +28,10 @@ import torch
 
 from mapf_gpt_tpu_torch.models.convert import load_model, load_reference_checkpoint
 from mapf_gpt_tpu_torch.ops import _build, fused_gpt
-from mapf_gpt_tpu_torch.tools.kernel_phases import CHECKPOINTS
+
+CHECKPOINTS = {
+    name: os.path.normpath(os.path.join(_build.CSRC, os.pardir, os.pardir, "checkpoints", f))
+    for name, f in (("2M", "MAPF-GPT-2M-r4.pt"), ("6M", "MAPF-GPT-6M-r5.pt"))}
 
 # counter -> phase; the phases 0-8 add up to a warpgroup's time, the rest are
 # parts of them
@@ -59,7 +62,7 @@ extern "C" int fused_gpt_clock(unsigned long long* out, int reset) {
 # (text in csrc/fused_gpt.cu, code put before it, code put after it, times it occurs)
 START = "      const long long s0 = clock64();\n"
 EDITS = (
-    ("#ifndef FUSED_GPT_SKIP", COUNTERS, "", 1),
+    ("typedef __nv_bfloat16 bf16;\n", COUNTERS, "", 1),
     ("      gemm::mbar_wait(B::full(i % STAGES), (i / STAGES) & 1);\n", START,
      "      CLOCK_SPAN(10, s0);\n", 1),
     ("      gemm::mbar_wait(B::att_full(s), (a / ATT_STAGES) & 1);\n", START,
@@ -67,7 +70,7 @@ EDITS = (
     ("      const int c0 = n_off + nt * E;\n", START, "", 1),
     ("          st32(o + 8 * E3 + 8 * j, acc[j][2], acc[j][3]);\n        }\n      }\n",
      "", "      CLOCK_SPAN(9, s0);\n", 1),
-    ("    if (RUN && active) ln_rows(xh + warp * 16 * LDX, sA, warp * 16, g2);\n", START,
+    ("    if (active) ln_rows(xh + warp * 16 * LDX, sA, warp * 16, g2);\n", START,
      "    CLOCK_SPAN(12, s0);\n", 1),
     ("    int a = 0, item = 0;   // attention stages and query tiles so far\n", "",
      "    long long t_ = clock64();\n", 1),

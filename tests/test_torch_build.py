@@ -135,25 +135,6 @@ def test_failed_build_raises_with_compiler_output(csrc, tmp_path, monkeypatch):
     assert not _build.library_path("k").exists()
 
 
-def test_kernel_phase_variants_find_each_phase_once():
-    """tools/kernel_phases.py builds the real kernel source with each
-    phase's FUSED_GPT_SKIP bit in turn; every phase's bit must be declared
-    once, tested by the code, and distinct."""
-    from mapf_gpt_tpu_torch.tools import kernel_phases
-
-    src = (_build.CSRC / "fused_gpt.cu").read_text()
-    bits = kernel_phases.skip_bits(src)
-    assert sorted(bits.values()) == [1, 2, 4, 8, 16, 32]
-    variants = kernel_phases.variant_defines(src)
-    assert variants["full"] == {} and len(variants) == len(kernel_phases.PHASES) + 2
-    assert sorted(d["FUSED_GPT_SKIP"] for n, d in variants.items() if n != "full") == \
-        sorted(bits.values())
-    with pytest.raises(RuntimeError, match="not declared once and tested"):
-        kernel_phases.skip_bits(src.replace("SKIP & SKIP_MLP", "SKIP_MLP"))
-    with pytest.raises(RuntimeError, match="not declared once and tested"):
-        kernel_phases.skip_bits(src.replace("SKIP_QKV = 1", "SKIP_QKV_ = 1"))
-
-
 def test_kernel_clock_instruments_every_phase():
     """tools/kernel_clock.py instruments a copy of the real kernel source:
     every anchor is found as often as it expects, each phase counter is

@@ -75,3 +75,35 @@ def test_no_port_file_names_jax_or_the_jax_package():
         if hits:
             offenders[os.path.relpath(path, ROOT)] = hits
     assert not offenders, offenders
+
+
+def test_one_copy_of_each_measurement():
+    """chip_smoke.py takes its bounds from perfbench/frozen.py and defines
+    none of its functions again; and every FUSED_GPT_* macro the port's
+    sources name is a width define the build passes (no switch that
+    compiles a phase out of the e2e kernel)."""
+    import ast
+
+    from mapf_gpt_tpu_torch.ops import fused_gpt
+
+    def functions(path):
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        return {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    frozen = functions(os.path.join(ROOT, "perfbench", "frozen.py"))
+    assert {"layer_ops", "bound", "e2e_bound", "blocks_bound", "train_ops",
+            "train_bounds"} <= frozen
+    assert not functions(os.path.join(ROOT, "chip_smoke.py")) & frozen
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        assert re.search(r"^from perfbench import frozen\b", fh.read(), re.M)
+
+    allowed = set(fused_gpt.e2e_defines(192, 6))
+    named = {}
+    for d, _, fs in os.walk(PORT):
+        for f in fs:
+            if f.endswith((".py", ".cu", ".cuh", ".h")):
+                with open(os.path.join(d, f)) as fh:
+                    for macro in re.findall(r"\bFUSED_GPT_[A-Z0-9_]+\b", fh.read()):
+                        named.setdefault(macro, set()).add(f)
+    assert allowed == {"FUSED_GPT_E", "FUSED_GPT_H"} and set(named) <= allowed, named
